@@ -5,8 +5,7 @@ Times the sharded epoch-mean power path on meshes of 1/2/4/8 devices and
 emits weak- and strong-scaling efficiency.  On this environment only a
 virtual CPU mesh exists (all virtual devices share one physical CPU, so
 the numbers measure sharding/collective PLUMBING overhead, not real
-scale-out); the same harness runs unchanged on a real multi-chip TPU slice
-the day one is attached — the fused Pallas kernel is auto-selected there.
+scale-out); the same harness runs unchanged on a multi-device host.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python benchmarks/scaling.py
@@ -50,7 +49,6 @@ def main():
     n_avail = len(jax.devices())
     sizes = [d for d in (1, 2, 4, 8) if d <= n_avail]
     backend = jax.default_backend()
-    use_fused = backend == "tpu"
     sfreq = 1000.0
     morse = nw.Morse(sfreq)
     bank = jnp.asarray(np.asarray(make_fft_bank(
@@ -68,16 +66,13 @@ def main():
             g = jnp.ones((C, NF, N), jnp.float32)
             fn = lambda: par.sharded_mean_power_grad(
                 sig, bank, g, mesh=mesh, interpolate=True)
-        elif use_fused:
-            fn = lambda: par.sharded_fused_mean_power(
-                sig, bank, mesh=mesh, interpolate=True)
         else:
             fn = lambda: par.sharded_mean_power(sig, bank, mesh=mesh,
                                                 interpolate=True)
         from ninwavelets_tpu.utils.observability import timed_median
         return timed_median(fn, reps=REPS)
 
-    results = {"backend": backend, "fused": use_fused, "devices": n_avail,
+    results = {"backend": backend, "devices": n_avail,
                "config": {"c": C, "n": N, "freqs": NF,
                           "e_local": E_LOCAL, "e_global": E_GLOBAL},
                "weak": [], "strong": [], "train_weak": []}

@@ -38,8 +38,8 @@ def main():
 
     def maybe_clear(i):
         # 500 sims x several compiled programs each crosses the kernel's
-        # 65530 memory-mapping ceiling on the CPU backend (the r4 test-
-        # gate lesson, CLAUDE.md) -- LLVM then dies with "Cannot
+        # 65530 memory-mapping ceiling on the CPU backend -- LLVM then
+        # dies with "Cannot
         # allocate memory"; periodically dropping executable caches
         # keeps the map count bounded.
         if i % 50 == 49:

@@ -18,7 +18,7 @@ from the file:
 ``run_workflow`` returns every checkpoint so the test suite asserts the
 chain end-to-end (planted bad channel found, blink suppressed, events
 under the bad span dropped, the planted effect significant);
-``main`` times the post-write chain on the chip and emits one
+``main`` times the post-write chain on the device and emits one
 extensions-style row.
 """
 from __future__ import annotations

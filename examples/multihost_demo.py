@@ -6,9 +6,9 @@ virtual CPU devices and an 8-device global mesh:
     python examples/multihost_demo.py 0 2 127.0.0.1:9731
     python examples/multihost_demo.py 1 2 127.0.0.1:9731
 
-On a real TPU pod each host runs its own process with the same code and
-``init_multihost()`` (auto-detected coordinator); the mesh then spans all
-hosts' chips over ICI/DCN.  The epoch-mean ``pmean`` is the only
+On a real cluster each host runs its own process with the same code and
+``init_multihost(coordinator, n_processes, process_id)``; the mesh then
+spans all hosts' devices.  The epoch-mean ``pmean`` is the only
 cross-process collective.
 """
 import os

@@ -1,7 +1,7 @@
 """2-D wavelet walkthrough: directional CWT on oriented textures and
 separable DWT compression — the reference roadmap's "2D wavelet" item
-(`/root/reference/README.md:524`), built TPU-first in r4/r5
-(`ops/cwt2d.py` runs as separable MXU matmuls; `ops/dwt2d.py` reuses the
+(the reference README's roadmap section)
+(`ops/cwt2d.py` runs as separable DFT matmuls; `ops/dwt2d.py` reuses the
 tested 1-D lifting primitives).
 
     python examples/wavelet2d_demo.py

@@ -1,10 +1,10 @@
-"""ninwavelets_tpu — a TPU-native analytic-wavelet transform engine.
+"""ninwavelets_tpu — an accelerator-native analytic-wavelet transform engine.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 ``Hiroki-Maeda/ninwavelets``: Generalized Morse, Morlet/Gabor, Shannon,
 MexicanHat and Haar filter banks synthesized on device in the frequency
 domain, CWT computed as one batched FFT x bank x iFFT program, with power /
-ITC / baseline correction fused, and multi-chip scale-out via
+ITC / baseline correction fused, and multi-device scale-out via
 ``jax.sharding`` (epoch/channel/frequency sharding and halo-exchange chunked
 convolution for long signals).
 

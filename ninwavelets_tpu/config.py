@@ -4,7 +4,7 @@ The reference's only configuration mechanism is constructor kwargs
 (``/root/reference/ninwavelets/wavelets.py:38-40, 110-113``); SURVEY §5
 commits this build to dataclass configs with the same names and defaults
 (``sfreq=1000, b=17.5, r=3, sigma=7, interpolate=False``), plus the engine
-knobs the TPU build adds (kernel precision, mesh axes, streaming windows).
+knobs this build adds (mesh axes, streaming windows).
 """
 from __future__ import annotations
 
@@ -46,10 +46,8 @@ class MorletConfig:
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """TPU engine knobs (no reference counterpart — the reference's only
+    """Engine knobs (no reference counterpart — the reference's only
     engine switch is the ``cuda`` flag this build ignores)."""
-    precision: str = "fast3"       # fused-kernel matmul precision
-    use_fused: bool = True         # allow the Pallas kernel where it fits
     mesh_shape: Tuple[int, int, int] = (1, 1, 1)   # (data, freq, time)
     streaming_window: int = 65536  # StreamingCWT window, samples
     halo_tol: float = 1e-4         # halo sizing envelope tolerance
@@ -87,9 +85,8 @@ class PipelineConfig:
 def run_pipeline(cfg: PipelineConfig, epochs) -> dict:
     """Execute a configured analysis pipeline over an MNE-style epochs
     container: build the wavelet, compute the all-channel epoch-mean power
-    TFR and ITC at ``cfg.freqs`` — through the fused Pallas kernel at
-    ``cfg.engine.precision`` where eligible (``cfg.engine.use_fused``), the
-    XLA path otherwise — and optionally baseline-correct the power.
+    TFR and ITC at ``cfg.freqs`` in one pass over the epochs, and
+    optionally baseline-correct the power.
 
     Returns a dict with ``power`` (C, F, N) and ``itc`` (C, F, N) device
     arrays plus the frequency grid and wavelet instance.  Optional stages
@@ -101,9 +98,7 @@ def run_pipeline(cfg: PipelineConfig, epochs) -> dict:
     import numpy as np
 
     from .ops.baseline import baseline_tf
-    from .ops.cwt import itc as xla_itc
-    from .ops.cwt import mean_power as xla_mean_power
-    from .ops.fused import power_itc_auto
+    from .ops.cwt import power_itc
     from .utils.mne_adapter import EpochsWavelet
 
     wavelet = cfg.wavelet.build()
@@ -113,15 +108,7 @@ def run_pipeline(cfg: PipelineConfig, epochs) -> dict:
     waves = ew._all_data()
     bank_r, bank_i = ew._bank_for(waves, freqs)
     interp = wavelet.interpolate
-    if cfg.engine.use_fused:
-        # One kernel pass for BOTH epoch reductions (the matmul stages are
-        # shared — two separate calls would redo all the MXU work).
-        power, itc = power_itc_auto(waves, bank_r, bank_i,
-                                    interpolate=interp,
-                                    precision=cfg.engine.precision)
-    else:
-        power = xla_mean_power(waves, bank_r, bank_i, interpolate=interp)
-        itc = xla_itc(waves, bank_r, bank_i, interpolate=interp)
+    power, itc = power_itc(waves, bank_r, bank_i, interpolate=interp)
     out = {"itc": itc, "freqs": freqs, "wavelet": wavelet}
 
     if cfg.significance is not None:

@@ -2,8 +2,8 @@
 prefetching stream sources.
 
 The reference has no IO layer (in-memory numpy only); this package is
-the TPU build's data loader — mmap'd recordings, GIL-free native
-gathers, and double-buffered streaming into the fused compute path.
+this build's data loader — mmap'd recordings, GIL-free native
+gathers, and double-buffered streaming into the device compute path.
 """
 from .bdf import BDFRaw, BDFReader, status_events, write_bdf
 from .brainvision import (BVRaw, BVReader, BVSource,

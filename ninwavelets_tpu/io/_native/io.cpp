@@ -1,6 +1,6 @@
 // Native window-gather kernels for the streaming IO subsystem.
 //
-// The TPU compute path (ops/fused.py, parallel/streaming.py) consumes
+// The streaming compute path (parallel/streaming.py) consumes
 // fixed-geometry "extended window" batches: (W, C, window + 2*halo)
 // float32 slabs cut from a long recording, halo-overlapped and
 // zero-padded at the edges.  Assembling those batches is the host-side
@@ -12,7 +12,7 @@
 // per batch, GIL-free (ctypes releases the GIL), so a plain Python
 // thread double-buffers file IO behind the device computation.
 //
-// No TPU/JAX types appear here on purpose: the contract is plain C
+// No JAX types appear here on purpose: the contract is plain C
 // buffers, loaded via ctypes (pybind11 is not available in this image).
 //
 // Reference parity note: the reference (Hiroki-Maeda/ninwavelets) has no

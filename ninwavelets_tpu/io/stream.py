@@ -13,7 +13,7 @@ Geometry contract (shared with ``StreamingCWT._ext_batches``): batch
 row ``w`` covers samples ``[starts[w]-halo, starts[w]+window+halo)``
 zero-padded outside ``[0, n_samples)``; a ragged final group keeps the
 full batch shape with all-zero unused rows (a second compiled program
-for one partial batch would cost minutes of Mosaic compile).
+for one partial batch would cost a second compile).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""``WaveletBase`` — the template-method extension contract, TPU-native.
+"""``WaveletBase`` — the template-method extension contract, on device.
 
 This mirrors the reference's central extensibility pattern
 (``/root/reference/ninwavelets/base.py:145-446``, documented at

@@ -88,7 +88,7 @@ class MorseMNE(Morse):
         except ImportError as e:  # pragma: no cover - mne optional
             raise ImportError(
                 "MorseMNE.cwt requires mne-python; install mne or use "
-                "Morse.cwt for the native TPU path") from e
+                "Morse.cwt for the native device path") from e
         wavelets = [np.asarray(w) for w in self.make_wavelets(freqs)]
         wave = np.atleast_2d(np.asarray(wave))
         return tfr.cwt(wave, wavelets, use_fft=use_fft, mode=mode,

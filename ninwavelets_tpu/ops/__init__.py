@@ -10,7 +10,9 @@ from .baseline import (Baseline, baseline_correct, baseline_of, baseline_tf,
                        METHODS as BASELINE_METHODS)
 from .cwt import (abs_from_bank, analytic_spectrum, cwt_abs, cwt_from_bank,
                   cwt_ri, itc, itc_from_bank, mean_power,
-                  mean_power_from_bank, power, power_from_bank, split_complex)
+                  mean_power_adjoint_from_bank, mean_power_from_bank, power,
+                  power_from_bank, power_itc, power_itc_from_bank,
+                  split_complex)
 from .fit import fit_frequencies, learn_bank
 from .connectivity import (coherence_matrix, coherence_matrix_from_bank,
                            lagged_coherence, lagged_coherence_morse,
@@ -18,12 +20,12 @@ from .connectivity import (coherence_matrix, coherence_matrix_from_bank,
                            nm_plv, nm_plv_from_bank, pac, pac_from_banks,
                            pac_pair, pac_pair_from_banks,
                            pac_significance,
-                           pair_matrix_scan, phase_lag, phase_lag_auto,
+                           pair_matrix_scan, phase_lag,
                            phase_lag_significance,
                            phase_lag_from_bank, phase_lag_from_sums,
                            phase_lag_sums, plv, plv_from_bank,
                            plv_matrix, plv_matrix_from_bank,
-                           plv_significance, plv_sums, ppc, ppc_auto,
+                           plv_significance, plv_sums, ppc,
                            ppc_from_bank, ppc_matrix, ppc_matrix_from_bank,
                            kuramoto_order, kuramoto_order_from_bank,
                            partial_coherence,
@@ -52,15 +54,13 @@ from .wpt import (best_basis, best_basis_reconstruct, imodwpt, modwpt,
                   node_band)
 from .extensions import (bicoherence, bicoherence_from_banks, cfd,
                          cfd_from_banks, imcoh,
-                         imcoh_auto, imcoh_from_bank, imcoh_from_sums,
+                         imcoh_from_bank, imcoh_from_sums,
                          psi, psi_from_bank, psi_from_sums,
                          bump_spectrum, cross_power_from_bank,
                          dog_spectrum, epoch_coherence_from_bank,
                          paul_spectrum, wavelet_coherence,
                          wavelet_coherence_from_bank, wavelet_entropy,
                          wtc_significance)
-from .fused import (fused_itc, fused_itc_from_bank, fused_mean_power,
-                    fused_mean_power_from_bank, itc_auto, mean_power_auto)
 from .granger import (conditional_granger, dtf_pdc, granger_from_factors,
                       spectral_granger_pairwise, uniform_freqs,
                       wavelet_conditional_granger, wavelet_dtf_pdc,
@@ -171,14 +171,13 @@ __all__ = [
     "abs_from_bank", "analytic_spectrum", "cwt_abs", "cwt_from_bank",
     "cwt_ri", "itc", "itc_from_bank", "mean_power", "mean_power_from_bank",
     "power", "power_from_bank", "split_complex",
-    "fused_mean_power", "fused_mean_power_from_bank", "mean_power_auto",
-    "fused_itc", "fused_itc_from_bank", "itc_auto",
+    "mean_power_adjoint_from_bank", "power_itc", "power_itc_from_bank",
     "paul_spectrum", "dog_spectrum", "bump_spectrum",
     "cross_power_from_bank", "epoch_coherence_from_bank",
     "wavelet_coherence", "wavelet_coherence_from_bank",
     "wavelet_entropy", "wtc_significance",
     "bicoherence", "bicoherence_from_banks",
-    "imcoh", "imcoh_auto", "imcoh_from_bank", "imcoh_from_sums",
+    "imcoh", "imcoh_from_bank", "imcoh_from_sums",
     "psi", "psi_from_bank", "psi_from_sums", "cfd", "cfd_from_banks",
     "plv", "plv_from_bank", "plv_sums", "pac", "pac_from_banks",
     "nm_plv", "nm_plv_from_bank", "plv_significance", "surrogate_pvalues",
@@ -187,10 +186,10 @@ __all__ = [
     "erpac", "erpac_from_banks",
     "pair_matrix_scan", "plv_matrix", "plv_matrix_from_bank",
     "coherence_matrix", "coherence_matrix_from_bank",
-    "phase_lag", "phase_lag_auto", "phase_lag_from_bank",
+    "phase_lag", "phase_lag_from_bank",
     "phase_lag_significance",
     "phase_lag_from_sums", "phase_lag_sums",
-    "ppc", "ppc_auto", "ppc_from_bank",
+    "ppc", "ppc_from_bank",
     "wpli_matrix", "wpli_matrix_from_bank",
     "psi_matrix", "psi_matrix_from_bank",
     "partial_coherence", "partial_coherence_from_bank",

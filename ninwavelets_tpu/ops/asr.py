@@ -9,7 +9,7 @@ completing the preprocessing chain next to trial rejection
 (``ops/reject.py``), ICA (``ops/ica.py``), and spline repair
 (``ops/csd.py``).
 
-TPU design — the whole processing pass is batched tiny linear algebra:
+Design — the whole processing pass is batched tiny linear algebra:
 
 * calibration: one covariance, one ``eigh``, per-component window-RMS
   statistics with robust (median/MAD) moments — thresholds per

@@ -4,8 +4,8 @@ The reference builds its bank one frequency at a time in a Python ``map``
 (``/root/reference/ninwavelets/base.py:258-279``), padding each entry on the
 host.  Here the whole bank is one ``jax.vmap`` over the analysis-frequency
 axis — a single fused XLA computation producing the (F, N) array directly in
-device memory, which is also what makes sharding the F axis across chips
-trivial (each chip synthesizes its own slice; recompute beats transfer).
+device memory, which is also what makes sharding the F axis across devices
+trivial (each device synthesizes its own slice; recompute beats transfer).
 
 Mode semantics preserved from the reference (``base.py:126-142, 221-256``):
 
@@ -215,8 +215,8 @@ def make_fft_bank(wdef: WaveletDef, freqs: jnp.ndarray, n: int, sfreq: float,
 
 
 # ----------------------------------------------------------------------------
-# Complex-free jitted boundaries (see ops.cwt for the rationale: TPU runtimes
-# reject complex64 at program boundaries; complex math inside jit is fine).
+# Complex-free jitted boundaries (the package's float-pair convention, see
+# ops.cwt; complex math stays inside jit).
 # ``WaveletDef`` is a frozen dataclass of bound methods, so it hashes stably
 # per wavelet instance and works as a static jit argument without recompiling
 # on every call.

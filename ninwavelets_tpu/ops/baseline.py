@@ -102,7 +102,7 @@ def baseline_correct(wave: jnp.ndarray, sfreq: float, start: float,
 def baseline_tf(tf: jnp.ndarray, sfreq: float, start: float, stop: float,
                 method: str = "zscore",
                 degenerate: str = "unit") -> jnp.ndarray:
-    """TPU-native extension: per-frequency-row baseline correction of a
+    """Extension: per-frequency-row baseline correction of a
     (..., F, N) time-frequency plane along the TIME axis.
 
     The reference has no TFR-aware baseline (its class only handles the

@@ -2,11 +2,11 @@
 bootstrap over epochs): how stable is this TFR / ITC / spectrum given
 the trials at hand?
 
-No reference counterpart.  TPU shape: a bootstrap replicate's mean is a
+No reference counterpart.  Layout: a bootstrap replicate's mean is a
 weighted trial average, so ALL replicates are one (B, E) @ (E, plane)
-MXU contraction — the same chunked-matmul recipe as the cluster
+matmul contraction — the same chunked-matmul recipe as the cluster
 permutation nulls; the per-pixel percentile is a sort over the (small)
-replicate axis, streamed in chunks so HBM holds ``chunk`` replicate
+replicate axis, streamed in chunks so device memory holds ``chunk`` replicate
 planes at a time.
 """
 from __future__ import annotations

@@ -7,19 +7,19 @@ is the standard nonparametric family-wise-error control every EEG/MEG
 power analysis applies before claiming a condition effect, built here for
 the engine's (epoch, F, N) single-trial planes.
 
-Design notes (TPU):
-* the ENTIRE permutation bank of t-maps is matmul work on the MXU: a
+Design notes:
+* the ENTIRE permutation bank of t-maps is matmul work: a
   sign-flip (one-sample / paired) null needs only ``sum_e s_pe * x_e`` —
   one (P, E) @ (E, F*N) contraction per chunk (the sum of squares is
   sign-invariant); an independent two-sample null contracts {0,1} group
   indicators against x and x**2 (two matmuls);
-* permutations stream through ``lax.scan`` in fixed-size chunks so HBM
-  holds only ``chunk`' t-maps at a time, while each chunk is still one
-  MXU-sized contraction;
+* permutations stream through ``lax.scan`` in fixed-size chunks so device
+  memory holds only ``chunk`` t-maps at a time, while each chunk is still
+  one matmul-sized contraction;
 * connected components batch over the chunk as a fixed-point min-label
   relaxation: 4-neighbor minimum + pointer jumping (label <- label of
   label) inside ``lax.while_loop`` — the pointer jump compresses paths,
-  so convergence is ~O(log diameter) sweeps of cheap VPU shifts;
+  so convergence is ~O(log diameter) sweeps of cheap elementwise shifts;
 * cluster masses are one scatter-add per map into an (F*N + 1,) bin
   table (the sentinel bin collects sub-threshold pixels); only the
   per-permutation MAX mass survives, so the null leaves the device as a
@@ -45,13 +45,13 @@ __all__ = [
     "tfce_test_independent", "fdr_correction",
 ]
 
-_CHUNK = 64  # permutations per scan step: one MXU batch, bounded HBM
+_CHUNK = 64  # permutations per scan step: one matmul batch, bounded memory
 
 
 def _dot(a, b):
     """Exact-f32 contraction: the null's t-maps must match the observed
-    map's f32 sums — DEFAULT matmul precision is single-pass bf16 on TPU
-    (~5e-3 rel err), and the pooled-variance cancellation amplifies it
+    map's f32 sums — DEFAULT matmul precision may run in TF32 on a GPU
+    (~1e-3 rel err), and the pooled-variance cancellation amplifies it
     (power planes have mean >> std), which would bias every null."""
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
@@ -278,10 +278,9 @@ def label_components(mask: jnp.ndarray, adjacency=None) -> jnp.ndarray:
 
     def body(state):
         # 4 cheap shift+min sweeps, then ONE pointer jump only if the
-        # sweeps still changed anything: on this chip the jump's
-        # take_along_axis gather costs ~67 ms per (64, 100, 1024) batch
-        # vs ~2 ms per plain sweep, and threshold masks converge in
-        # ~10-15 plain sweeps — the jump exists for pathological long
+        # sweeps still changed anything: the jump's take_along_axis
+        # gather is far dearer than a plain sweep, and threshold masks
+        # converge in ~10-15 plain sweeps — the jump exists for pathological long
         # components (it keeps worst-case depth logarithmic) and is the
         # identity at the fixed point, so gating it is exact.
         lab, _ = state
@@ -392,7 +391,7 @@ def tfce_map(tmap: jnp.ndarray, start: float = 0.2, step: float = 0.4,
 
 
 # ---------------------------------------------------------------------------
-# permutation nulls (scan over fixed-size chunks of the MXU contraction)
+# permutation nulls (scan over fixed-size chunks of the matmul contraction)
 # ---------------------------------------------------------------------------
 
 def _pad_perms(n_perm: int, chunk: int) -> int:
@@ -413,7 +412,7 @@ def sign_chunk_max_mass(signs: jnp.ndarray, xf: jnp.ndarray,
                         s2: jnp.ndarray, n_obs: int, threshold: float,
                         plane: tuple, adjacency=None) -> jnp.ndarray:
     """Max cluster mass of every sign-flip t-map in one chunk: the
-    (chunk, E) @ (E, prod(plane)) MXU contraction + clustering (``plane``
+    (chunk, E) @ (E, prod(plane)) matmul contraction + clustering (``plane``
     is (F, N), or (C, F, N) with channel ``adjacency``).  Shared by the
     single-device scan and the mesh-sharded null."""
     t = _t_from_sign_sums(_dot(signs, xf), s2, n_obs).reshape(-1, *plane)

@@ -8,7 +8,7 @@ already hold, completing the nonlinear family next to
 ``extensions.wavelet_entropy`` (spectral) and ``ops/cycles.py``
 (waveform shape).
 
-TPU design:
+Design:
 
 * sample entropy is O(N^2) template matching; the Chebyshev distance
   between all embedding pairs is built as a (N', N') |x_i - x_j| plane

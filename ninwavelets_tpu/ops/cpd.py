@@ -6,10 +6,10 @@ al., J. Neurosci. Methods 2007): a (channel x frequency x time) or
 components, each an outer product of a spatial signature, a spectral
 signature, and a temporal envelope.
 
-Design notes (TPU):
+Design notes:
 * every ALS step is an MTTKRP, expressed directly as one ``einsum``
   over the DENSE tensor (no unfolding copies, no Khatri-Rao
-  materialization) — XLA contracts it on the MXU;
+  materialization) — XLA contracts it as one dense product;
 * the normal equations are R x R (R is single/double digits): solved
   with a Cholesky-friendly ``jnp.linalg.solve`` on device;
 * the iteration count is static (``lax.scan``); convergence is reported
@@ -42,8 +42,8 @@ def _mttkrp(x, factors, mode):
     """einsum('ijk,jr,kr->ir', x, B, C)-style MTTKRP for any ndim.
 
     Precision.HIGHEST throughout: the fit metric cancels three
-    O(||X||^2) terms, and on TPU the DEFAULT single-pass bf16 matmul
-    (~5e-3 rel err — CLAUDE.md) would swamp the residual of any model
+    O(||X||^2) terms, and a DEFAULT-precision matmul (TF32 on a GPU,
+    ~1e-3 rel err) would swamp the residual of any model
     with fit > ~0.93 (and degrade the ALS normal equations)."""
     nd = x.ndim
     letters = string.ascii_lowercase[:nd]

@@ -13,7 +13,7 @@ Design: everything per-montage is a tiny (C, C) dense problem, so the
 spline system (Legendre series + bordered solve) is prepared ONCE in
 float64 numpy on the host (cached per montage/parameter key) and the
 per-sample application is one float32 (C, C) @ (C, N) device matmul —
-the only part that scales with data.  TPU float32 could not build the
+the only part that scales with data.  float32 could not build the
 series stably anyway (the (2n+1)/(n(n+1))^m terms span ~12 decades at
 the default 50 degrees), and a per-montage host solve costs microseconds.
 """

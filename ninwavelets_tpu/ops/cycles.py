@@ -7,10 +7,10 @@ asymmetry, amplitude, monotonicity), then flags which cycles belong to
 genuine bursts.  Waveform asymmetries carry physiology (e.g. sawtooth
 beta in motor cortex) that any Fourier/wavelet power spectrum discards.
 
-Design notes (TPU):
+Design notes:
 * the narrowband localizer runs on the rfft grid (raised-cosine band
-  edges; input reflect-padded to a power of two — the TPU FFT
-  constraint), extrema are then localized on the RAW signal as in
+  edges; input reflect-padded to a power of two, the FFT's fastest
+  length), extrema are then localized on the RAW signal as in
   bycycle;
 * cycle segmentation is static-shape throughout: rising/falling
   zero-crossings of the filtered trace become segment ids via a cumsum,

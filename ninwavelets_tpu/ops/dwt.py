@@ -9,11 +9,11 @@ length, the standard tool for wavelet variance and shrinkage on
 time-series), its exact inverse, the additive multiresolution analysis,
 and denoising.
 
-TPU-first formulation
----------------------
+Device formulation
+------------------
 The textbook MODWT is a filter pyramid (level j circularly convolves the
 previous smooth with an a-trous-upsampled filter) — a sequential,
-gather-heavy recursion.  On TPU we instead build the LEVEL TRANSFER
+gather-heavy recursion.  Here we instead build the LEVEL TRANSFER
 FUNCTIONS once on host,
 
     Htil_j(k) = Htil(2^{j-1} k mod N) * prod_{m<j-1} Gtil(2^m k mod N)
@@ -25,8 +25,8 @@ FFT pipeline instead of a J-deep recursion.  The inverse is the
 conjugate bank (the MODWT filter bank is a tight frame:
 ``sum_j |Htil_j|^2 + |Gtil_J|^2 == 1``), so reconstruction is exact to
 float round-off.  Circular boundary conditions throughout (the classical
-MODWT definition).  Power-of-two lengths keep the FFTs on the fast path
-(non-pow2 lowers to a dense DFT matmul on TPU — pad first).
+MODWT definition).  Power-of-two lengths keep the FFTs on their fastest
+path (pad first).
 
 Daubechies filters are COMPUTED (spectral factorization of the Daubechies
 half-band polynomial, minimum-phase root selection) rather than
@@ -376,9 +376,8 @@ def _shrink(w, thresholds, *, mode: str):
 
 def pow2_pad(x):
     """Reflect-pad the last axis up to the next power of two, returning
-    ``(padded, original_n)``.  TPU FFTs of non-power-of-two lengths lower
-    to a dense O(N^2) DFT matmul (see CLAUDE.md), and real recordings are
-    rarely pow2 — reflection keeps the circular-boundary artifacts of the
+    ``(padded, original_n)``.  Power-of-two lengths are the FFT's fastest
+    case, and real recordings are rarely pow2 — reflection keeps the circular-boundary artifacts of the
     padded transform away from the retained samples."""
     n = x.shape[-1]
     n2 = 1 << (n - 1).bit_length()
@@ -395,7 +394,7 @@ def modwt_denoise(x, wavelet: str = "db4", level: int | None = None,
     the smooth, invert.  (..., N) -> (..., N) float32.
 
     ``pad_pow2=True`` reflect-pads to the next power of two before the
-    transform and crops after — the TPU-friendly path for arbitrary-length
+    transform and crops after — the fast-FFT path for arbitrary-length
     recordings (``pow2_pad``); the retained samples are unaffected except
     within one filter span of the far edge.
 

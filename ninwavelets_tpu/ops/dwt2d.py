@@ -15,7 +15,7 @@ separably along x then y:
 Naming: LH = lowpass x / highpass y ("horizontal" detail, horizontal
 edges), HL = highpass x / lowpass y ("vertical" detail), HH = diagonal.
 
-TPU shape rules: H and W must be divisible by 2^level (the decimation
+Shape rules: H and W must be divisible by 2^level (the decimation
 is a strided slice of a circular-filter pass — static shapes, no
 boundary special-casing).  The separability gives the test oracle for
 free: on a rank-one image ``a(y) b(x)`` every subband is the outer

@@ -6,7 +6,7 @@ the adaptive-decomposition family next to EWT (``ops/ewt.py``) and VMD
 (``ops/vmd.py``); with ``ops.vmd.instantaneous`` / ``hilbert_spectrum``
 it forms the classical Hilbert–Huang transform.
 
-Design notes (TPU — EMD is the textbook "impossible to vectorize"
+Design notes (EMD is the textbook "impossible to vectorize"
 algorithm; everything here is static-shape and batched):
 
 * extrema knots are compacted WITHOUT dynamic shapes: the boolean
@@ -230,11 +230,10 @@ def _envelope_grid(x, mask):
     """Natural-cubic-spline envelope computed ENTIRELY on the sample
     grid — the r4 rewrite of the sort-compaction path.
 
-    The compact path (still used for Akima) costs ~8 ms per (64, 2048)
-    envelope on the v5e chip, ~70% of it in the five per-sample
-    ``take_along_axis`` gathers of the evaluation stage plus the
-    ``jnp.sort`` compaction; TPU dynamic gathers are that expensive.
-    Since every knot lies ON the integer grid, both disappear:
+    The compact path (still used for Akima) spends its time in the five
+    per-sample ``take_along_axis`` gathers of the evaluation stage plus
+    the ``jnp.sort`` compaction.  Since every knot lies ON the integer
+    grid, both disappear:
 
     * neighbor knot positions/values come from log-depth forward /
       backward fills (one associative scan each);
@@ -384,8 +383,8 @@ def emd(signal_r, n_imfs: int | None = None, n_siftings: int = 10,
     sifting depth per IMF (the EEMD paper's protocol — 10 is standard);
     ``spline`` is ``"natural"`` (canonical cubic-spline envelopes) or
     ``"akima"`` (local slopes, no tridiagonal solve — tighter envelopes;
-    measured slightly SLOWER on the v5e chip, the dynamic-column ghost
-    patches cost more than the Thomas scans).  Rows whose residual
+    its dynamic-column ghost patches are gathers where natural splines
+    run Thomas scans).  Rows whose residual
     drops below 3
     interior extrema stop early and emit zero IMFs.
     """

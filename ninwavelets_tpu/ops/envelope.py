@@ -9,7 +9,7 @@ instantaneous phase, ``Y_{b|a}(f, t) = imag(W_b conj(W_a) / |W_a|)``, so
 any signal component shared instantaneously (volume conduction) cancels
 exactly while genuinely coupled but lagged envelopes survive.
 
-TPU shape: one signal rFFT; bank rows stream through a ``lax.scan`` (the
+Layout: one signal rFFT; bank rows stream through a ``lax.scan`` (the
 (E, C, F, N) coefficient tensor never exists), and within a row a second
 scan walks the orthogonalization seed channel — per step the projection,
 log envelopes, and per-epoch Pearson correlations are elementwise /

@@ -6,7 +6,7 @@ tools (Luck, "An Introduction to the ERP Technique") applied to exactly
 the epoched arrays the adapters hold, complementing the evoked/induced
 power split the TFR side already has.
 
-TPU design: every measure is a windowed reduction (argmax / mean /
+Design: every measure is a windowed reduction (argmax / mean /
 cumsum-threshold crossing) over a static slice — no dynamic shapes; the
 jackknife onset family builds ALL leave-one-out evoked waveforms with
 one rank-1 update of the epoch sum (never E separate means) and the

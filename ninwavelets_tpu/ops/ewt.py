@@ -8,7 +8,7 @@ into oscillatory modes) but with an explicit filterbank, a tight-frame
 guarantee (exact reconstruction by summation) and none of EMD's sifting
 heuristics.
 
-Design notes (TPU):
+Design notes:
 * boundary detection is tiny, data-dependent host work (numpy peak
   picking on the magnitude spectrum) — exactly the kind of control flow
   that should NOT be traced;

@@ -178,8 +178,7 @@ def _epoch_coherence_jit(sa, sb, bank_r, bank_i, *, interpolate, eps):
 def epoch_coherence(sigs_a_r, sigs_b_r, bank_r, bank_i=None,
                     interpolate: bool = False, eps: float = 1e-12):
     """Jitted float-boundary wrapper for ``epoch_coherence_from_bank``
-    (real or complex banks, the latter as a float pair) — always the exact
-    XLA path; ``epoch_coherence_auto`` opts into the fused kernel."""
+    (real or complex banks, the latter as a float pair)."""
     return _epoch_coherence_jit(sigs_a_r, sigs_b_r, bank_r, bank_i,
                                 interpolate=bool(interpolate),
                                 eps=float(eps))
@@ -358,26 +357,6 @@ def wavelet_coherence(sig_a_r, sig_b_r, bank_r, freqs, sfreq: float,
                                   return_phase=bool(return_phase))
 
 
-def epoch_coherence_auto(sigs_a_r, sigs_b_r, bank_r, bank_i=None,
-                         interpolate: bool = False, eps: float = 1e-12,
-                         precision: str = "fast3"):
-    """Epoch coherence with automatic kernel dispatch: the fused
-    ``coherence`` epilogue on TPU for conforming real-bank workloads (one
-    pass per pair chunk — all four epoch sums off the shared matmul
-    stages; ~1e-5 rel err at fast3, see the on-chip parity artifact), the
-    exact XLA path otherwise."""
-    from .fused import supports
-    if (bank_i is None and jax.default_backend() == "tpu"
-            and supports(sigs_a_r.shape, bank_r, epilogue="itc")):
-        from .fused import fused_coherence
-        return fused_coherence(sigs_a_r, sigs_b_r, bank_r,
-                               interpolate=interpolate, eps=eps,
-                               precision=precision)
-    return _epoch_coherence_jit(sigs_a_r, sigs_b_r, bank_r, bank_i,
-                                interpolate=bool(interpolate),
-                                eps=float(eps))
-
-
 # ----------------------------------------------------------------------------
 # Imaginary coherency
 # ----------------------------------------------------------------------------
@@ -412,8 +391,7 @@ def imcoh_from_bank(sigs_a: jnp.ndarray, sigs_b: jnp.ndarray,
     phase-lag family (``ops.connectivity.phase_lag``) it keeps the
     coherency NORMALIZATION (amplitude-weighted, signed by lag
     direction), making it the natural companion to ``epoch_coherence`` —
-    and it rides the very same four epoch sums, so the fused
-    ``coherence`` kernel epilogue serves it for free (``imcoh_auto``)."""
+    and it rides the very same four epoch sums."""
     xr, xi, pa, pb = coherence_sums(sigs_a, sigs_b, bank, interpolate)
     return imcoh_from_sums(xr, xi, pa, pb, eps)
 
@@ -426,25 +404,7 @@ def _imcoh_jit(sa, sb, bank_r, bank_i, *, interpolate, eps):
 
 def imcoh(sigs_a_r, sigs_b_r, bank_r, bank_i=None,
           interpolate: bool = False, eps: float = 1e-12):
-    """Jitted float-boundary wrapper for ``imcoh_from_bank`` — always the
-    exact XLA path; ``imcoh_auto`` opts into the fused kernel."""
-    return _imcoh_jit(sigs_a_r, sigs_b_r, bank_r, bank_i,
-                      interpolate=bool(interpolate), eps=float(eps))
-
-
-def imcoh_auto(sigs_a_r, sigs_b_r, bank_r, bank_i=None,
-               interpolate: bool = False, eps: float = 1e-12,
-               precision: str = "fast3"):
-    """Imaginary coherency with automatic kernel dispatch: reuses the
-    fused ``coherence`` epilogue sums on TPU (same dispatch rule as
-    ``epoch_coherence_auto``), the exact XLA path otherwise."""
-    from .fused import supports
-    if (bank_i is None and jax.default_backend() == "tpu"
-            and supports(sigs_a_r.shape, bank_r, epilogue="itc")):
-        from .fused import fused_imcoh
-        return fused_imcoh(sigs_a_r, sigs_b_r, bank_r,
-                           interpolate=interpolate, eps=eps,
-                           precision=precision)
+    """Jitted float-boundary wrapper for ``imcoh_from_bank``."""
     return _imcoh_jit(sigs_a_r, sigs_b_r, bank_r, bank_i,
                       interpolate=bool(interpolate), eps=float(eps))
 

@@ -1,14 +1,13 @@
 """Zero-phase spectral filtering and resampling.  No reference
 counterpart — the reference leaves preprocessing to mne; these are the
-TPU-native basics (bandpass/low/high/notch, FFT resampling) so a
+device-side basics (bandpass/low/high/notch, FFT resampling) so a
 recording never has to leave the device between cleaning and analysis.
 
-Design notes (TPU):
+Design notes:
 * all filters are zero-phase multiplications on the rfft grid with
   raised-cosine transitions (no FIR delay bookkeeping, no filtfilt
-  double pass); inputs are reflect-padded to a power of two — the TPU
-  FFT constraint (non-pow2 lengths lower to a dense O(N^2) DFT matmul,
-  see CLAUDE.md) — and cropped back;
+  double pass); inputs are reflect-padded to a power of two — the FFT's
+  fastest length — and cropped back;
 * ``resample`` keeps EVERY FFT length a power of two: when the target
   grid is a pow2 fraction/multiple of the padded grid (the common EEG
   decimations — 1000->250, 512->128) it is one exact spectrum

@@ -1,8 +1,8 @@
 """Gradient-based fitting of wavelet analyses (beyond-reference extension).
 
 The whole pipeline is differentiable — bank synthesis w.r.t. the analysis
-frequencies, and the epoch-mean power w.r.t. the BANK itself (the fused
-kernel's analytic adjoint backward, ``ops.fused._fused_power_bwd``).  This
+frequencies, and the epoch-mean power w.r.t. the BANK itself (the analytic
+adjoint, ``ops.cwt.mean_power_adjoint_from_bank``).  This
 module packages the two optimizations those gradients enable:
 
 * ``fit_frequencies`` — move a frequency grid to maximize the power it
@@ -24,7 +24,7 @@ import numpy as np
 from jax import lax
 
 from .bank import WaveletDef, make_fft_bank
-from .cwt import mean_power_from_bank
+from .cwt import mean_power_adjoint_from_bank, mean_power_from_bank
 
 __all__ = ["fit_frequencies", "learn_bank"]
 
@@ -77,25 +77,18 @@ def fit_frequencies(signals, wdef: WaveletDef, freqs0, sfreq: float,
                           lr=float(lr), n=int(signals.shape[-1]))
 
 
-@partial(jax.jit, static_argnames=("loss", "interpolate", "steps", "lr",
-                                   "use_fused", "precision", "interpret"))
+@partial(jax.jit, static_argnames=("loss", "interpolate", "steps", "lr"))
 def _learn_bank_jit(signals, bank0_r, bank0_i, target, *, loss,
-                    interpolate, steps, lr, use_fused, precision,
-                    interpret):
+                    interpolate, steps, lr):
     import optax   # lazy: optional dependency, like mne elsewhere
     opt = optax.adam(lr)
 
     def power_of(params):
-        # Optimization variables are float pairs — complex64 must never
-        # cross the jit boundary on the TPU runtime (CLAUDE.md); it is
-        # assembled here, inside the program.
+        # Optimization variables are float pairs (the package's program
+        # boundary convention); the complex bank is assembled here.
         br, bi = params
         bank = br if bi is None else lax.complex(br, bi)
-        if use_fused:
-            from .fused import fused_mean_power_from_bank
-            return fused_mean_power_from_bank(signals, bank, interpolate,
-                                              interpret, precision)
-        return mean_power_from_bank(signals, bank, interpolate)
+        return mean_power_adjoint_from_bank(signals, bank, interpolate)
 
     def loss_fn(params):
         p = power_of(params)
@@ -117,18 +110,16 @@ def _learn_bank_jit(signals, bank0_r, bank0_i, target, *, loss,
 
 def learn_bank(signals, bank0, target=None, loss: str = "mse",
                interpolate: bool = True, steps: int = 200,
-               lr: float = 1e-3, use_fused: bool = False,
-               precision: str = "fast3", interpret: bool = False,
-               bank0_i=None):
+               lr: float = 1e-3, bank0_i=None):
     """Learn a free-form (F, N) frequency-domain filterbank by gradient
     descent on a loss over the epoch-mean power TFR.
 
     ``loss="mse"`` matches a ``target`` (C, F, N) power plane (distill a
     reference analysis, denoise-by-fitting); ``loss="power"`` maximizes
-    captured power (an adaptive front-end).  ``use_fused=True`` runs every
-    step's forward AND backward through the Pallas kernels on TPU (the
-    bank cotangent comes from the analytic adjoint).  A wavelet bank
-    (``make_fft_bank``) is the natural ``bank0``.
+    captured power (an adaptive front-end).  Each step's gradient comes
+    from the analytic adjoint, so memory stays O(C*F*N) whatever the
+    epoch count.  A wavelet bank (``make_fft_bank``) is the natural
+    ``bank0``.
 
     A complex (Normal/Twice-mode) initialization is passed as the
     (``bank0``, ``bank0_i``) float pair — complex64 never crosses the
@@ -151,7 +142,5 @@ def learn_bank(signals, bank0, target=None, loss: str = "mse",
         raise ValueError('loss must be "mse" or "power"')
     (br, bi), losses = _learn_bank_jit(
         signals, bank0, bank0_i, target, loss=str(loss),
-        interpolate=bool(interpolate), steps=int(steps), lr=float(lr),
-        use_fused=bool(use_fused), precision=str(precision),
-        interpret=bool(interpret))
+        interpolate=bool(interpolate), steps=int(steps), lr=float(lr))
     return ((br, bi) if bank0_i is not None else br), losses

@@ -5,12 +5,12 @@ matrices: per-node strength, Onnela weighted clustering, shortest-path
 characteristic length and global efficiency, and a degree-preserving-
 null small-world index.
 
-No reference counterpart.  Design notes (TPU):
+No reference counterpart.  Design notes:
 * everything batches over the leading (frequency) axes: clustering is
   two matmuls of the cube-rooted weights (``diag(W'^3)``), shortest
   paths are a fixed ``ceil(log2(C))``-step min-plus matrix squaring
-  (each step an elementwise-min over a broadcast sum — O(C^3) work on
-  the VPU, no data-dependent loops);
+  (each step an elementwise-min over a broadcast sum — O(C^3)
+  elementwise work, no data-dependent loops);
 * the small-world null preserves the weight DISTRIBUTION by shuffling
   the upper-triangle weights (degree-preserving rewiring of a complete
   weighted graph = weight permutation), generated on device.

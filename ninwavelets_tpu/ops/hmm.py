@@ -6,7 +6,7 @@ spectral profile with Markov dwell-time structure.  The complement of
 the static decompositions: CP/PARAFAC finds *which* patterns exist,
 the HMM finds *when* each one rules.
 
-Design notes (TPU):
+Design notes:
 * the forward-backward recursions are two ``lax.scan``s in log space
   (per-step ``logsumexp`` over the K x K transition — K is single or
   double digits, so each step is one tiny matmul-shaped reduction);
@@ -91,8 +91,8 @@ def _backward_stats(log_b, log_a, log_alpha):
         return (lbeta, xi_acc), lbeta
 
     # derive the zero inits from the data so their varying-axes type
-    # matches the scanned operands under shard_map (CLAUDE.md: scan
-    # zero-inits inside shard_map need data-derived carries)
+    # matches the scanned operands under shard_map (scan zero-inits
+    # inside shard_map need data-derived carries)
     zero = 0.0 * log_b[0, 0]
     init = (jnp.zeros(k) + zero, jnp.zeros((k, k)) + zero)
     (_, xi_sum), lbetas = lax.scan(
@@ -137,9 +137,9 @@ def _hmm_body(x, key, *, n_states, n_iter, stickiness):
         pi, a, means, variances = carry
         gamma, xi, ll = jax.vmap(
             lambda seq: _e_step(seq, pi, a, means, variances))(x)
-        # M-step over all sequences.  Precision.HIGHEST: on TPU the
-        # DEFAULT matmul is single-pass bf16 (~5e-3 rel err — CLAUDE.md)
-        # and E[x^2] - mu^2 cancels catastrophically for non-centered
+        # M-step over all sequences.  Precision.HIGHEST: a DEFAULT
+        # matmul may run in TF32 on a GPU (~1e-3 rel err) and
+        # E[x^2] - mu^2 cancels catastrophically for non-centered
         # features; true-f32 accumulation keeps the cancellation at
         # f32 eps, which the z-scored-feature convention then absorbs.
         g = gamma.reshape(-1, k)                             # (B*T, K)

@@ -4,15 +4,15 @@ EEG preprocessing step the reference leaves to mne: unmix a (C, N)
 recording into statistically independent sources, inspect/flag the
 ocular-cardiac-muscle components, and reconstruct without them.
 
-Design notes (TPU):
+Design notes:
 * whitening is an eigendecomposition of the C x C channel covariance
   (C is at most a few hundred — one small ``jnp.linalg.eigh``), with
-  the data matmuls at ``Precision.HIGHEST`` (statistic path — DEFAULT
-  bf16 would bias the covariance, see CLAUDE.md);
+  the data matmuls at ``Precision.HIGHEST`` (statistic path — a
+  DEFAULT-precision matmul, TF32 on a GPU, would bias the covariance);
 * the symmetric (parallel) FastICA fixed point runs a STATIC number of
   iterations inside one ``lax.scan``: each step is two (K, N) x (N, K)
   matmuls (the nonlinearity moment and its derivative mean) plus a
-  K x K symmetric-decorrelation eigh — all MXU/compiler-friendly, no
+  K x K symmetric-decorrelation eigh — all dense and static, no
   data-dependent convergence branching; the final per-iteration
   convergence metric is returned so the caller can CHECK convergence
   instead of trusting it;

@@ -11,12 +11,12 @@ set is the fractal estimate and ``PSD - fractal`` the oscillatory
 residual.  Complements :mod:`.specparam` (which FITS a parametric
 aperiodic model; IRASA is model-free).
 
-TPU notes: literal fractional resampling changes array lengths per
+Notes: literal fractional resampling changes array lengths per
 ``h`` (dynamic shapes), so the resampled spectra are evaluated by the
 time-scaling theorem instead — ``PSD_{up h}(f) = PSD(h f)`` — as
 linear interpolation on the UNIFORM Welch grid with computed gather
-indices (``jnp.interp``'s searchsorted scalarizes on TPU; a uniform
-grid needs no search).  The Welch PSD itself is strided-gather frames
+indices (a uniform grid needs no search, so ``jnp.interp``'s
+searchsorted is avoided).  The Welch PSD itself is strided-gather frames
 x Hamming x rFFT, all shape-static.
 
 Boundaries are float-only as everywhere in this package.

@@ -8,7 +8,7 @@ quasi-stable maps (the canonical A/B/C/D) and the recording becomes a
 symbol sequence with coverage / duration / occurrence / transition
 statistics.
 
-TPU design — everything is static-shape matmul work:
+Design — everything is static-shape matmul work:
 
 * the modified (polarity-invariant) k-means never materializes per-state
   sample subsets: the E-step is one (K, C) @ (C, T) activation matmul

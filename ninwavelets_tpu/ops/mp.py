@@ -14,7 +14,7 @@ a long low-frequency oscillation at the same instant resolve as two
 atoms, each with amplitude/phase/width parameters you can threshold —
 the spindle-detection workflow.
 
-TPU mapping: one iteration = one CWT-shaped bank pass.  The dictionary
+Mapping: one iteration = one CWT-shaped bank pass.  The dictionary
 correlations over ALL translations are ``ifft(fft(r) * conj(h_hat))``
 per (scale, frequency) row — the same batched spectral product as
 ``ops.cwt`` — followed by a global argmax for SELECTION, and an exact

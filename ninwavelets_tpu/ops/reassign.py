@@ -15,11 +15,11 @@ d nu``, central differences on the FFT grid).  Synchrosqueezing
 full reassignment gives the sharpest ridges for display/ridge analysis
 at the cost of invertibility — both belong in a complete TFR toolbox.
 
-TPU mapping: the 2-D scatter-add (which scalarizes on TPU, see
-``sst.py``) is recast as one (F_out, N) @ (N, T') MATMUL per source
+Mapping: the 2-D scatter-add (see ``sst.py``) is recast as one
+(F_out, N) @ (N, T') MATMUL per source
 row under a ``lax.scan`` — the frequency-interval mask times power as
 the left operand, the time-bin one-hot as the right — so the hot loop
-is MXU work with O(F_out x N) live memory.  Output time is decimated
+is matmul work with O(F_out x N) live memory.  Output time is decimated
 by ``t_decim`` (reassigned planes are display/statistics surfaces; the
 bins are where the energy centroids land).
 
@@ -108,8 +108,7 @@ def _reassign_one(signal, bank, f_grid, *, sfreq: float,
     # K source rows per scan step: the (K, F_out, N) interval masks and
     # (K, N, T') one-hots are built as one fused elementwise pass each
     # (bandwidth-bound) and contracted as one BATCHED matmul — 100 tiny
-    # dispatches collapse to ceil(F/K) MXU-shaped ones (measured ~45x
-    # on v5e vs the row-at-a-time scan).
+    # dispatches collapse to ceil(F/K) matmul-shaped ones.
     K = 16
     pad = (-n_f) % K
     if pad:
@@ -175,10 +174,9 @@ def reassigned_power(signals_r, bank_r, f_grid, sfreq: float,
 def _reassign_flat(flat, bank, f_grid, sfreq, interpolate, rel_threshold,
                    t_decim):
     # The lax.map must live INSIDE a jit: outside one, every call
-    # re-traces and re-compiles the scan program (measured 4.1 s/call
-    # vs 40 ms compiled on v5e — the CLAUDE.md fresh-jit lesson in scan
-    # form).  Module-level jit keys on this function's identity, so the
-    # compile is paid once per geometry.
+    # re-traces and re-compiles the scan program.  Module-level jit keys
+    # on this function's identity, so the compile is paid once per
+    # geometry.
     fn = partial(_reassign_one, bank=bank, f_grid=f_grid, sfreq=sfreq,
                  interpolate=interpolate, rel_threshold=rel_threshold,
                  t_decim=t_decim)

@@ -8,7 +8,7 @@ trials whose peak-to-peak amplitude exceeds a threshold on any channel
 are dropped, and the threshold itself is chosen by cross-validation
 instead of folklore.
 
-TPU design — rejection is masking, never dynamic shapes:
+Design — rejection is masking, never dynamic shapes:
 
 * per-trial/channel peak-to-peak is one max-minus-min reduction over
   the (E, C, N) batch;

@@ -4,9 +4,9 @@ No reference counterpart.  Given a scalogram (raw power or the
 synchrosqueezed plane from ``ops.sst``), recovers the dominant
 instantaneous-frequency track as the max-energy path under a frequency-
 jump penalty — the classic penalized dynamic program (Carmona, Hwang &
-Torresani 1997), phrased TPU-natively: one ``lax.scan`` over time with an
-(F, F) broadcast relaxation per step (F ~ 100, so the relaxation is a tiny
-VPU op), and a reverse scan for the backtrack — no Python loops, no
+Torresani 1997), phrased for the device: one ``lax.scan`` over time with
+an (F, F) broadcast relaxation per step (F ~ 100, so the relaxation is a
+tiny elementwise op), and a reverse scan for the backtrack — no Python loops, no
 data-dependent shapes.
 """
 from __future__ import annotations
@@ -59,8 +59,8 @@ def _ridge_indices(log_e: jnp.ndarray, penalty: float) -> jnp.ndarray:
     """(F, N) log-energy -> (N,) int32 row indices of the optimal path.
 
     Maximizes ``sum_t log_e[f_t, t] - penalty * (f_t - f_{t-1})^2``
-    (index units).  TPU shape: the per-column relax is a tiny (F, F)
-    VPU op, so a 1-column-per-step scan is pure iteration overhead —
+    (index units).  Layout: the per-column relax is a tiny (F, F)
+    elementwise op, so a 1-column-per-step scan is pure iteration overhead —
     ``_UNROLL`` columns ride each scan step instead (16x fewer steps,
     same math).  The sequential backtrack is gone entirely: a reverse
     scan produces the suffix scores beta, and each column's optimal row

@@ -3,8 +3,8 @@ features from cascaded CWT + modulus + lowpass averaging.
 
 No reference counterpart — scattering is the standard modern feature
 front-end built on exactly the machinery this engine has (two wavelet
-banks and an FFT-domain lowpass), and it is MXU/VPU-native: every stage is
-a batched bank multiply or an elementwise modulus.
+banks and an FFT-domain lowpass), and every stage is a batched bank
+multiply, an elementwise modulus or one matmul.
 
     U1[f1]      = |CWT(x,  bank1)[f1]|
     S1[f1]      = (phi * U1[f1]) downsampled            (order 1)
@@ -59,10 +59,10 @@ def _smooth_decimate_operator(n: int, stride: int, sfreq: float,
     """(N, N//stride) matrix G of the ENTIRE smooth+decimate stage:
     lowpass-then-decimate is an LTI projection, so ``s = u @ G`` with
     ``G[j, m] = g[(m*stride - j) mod N]`` and ``g = ifft(phi)`` (real,
-    symmetric).  One MXU matmul and ONE pass over the modulus planes
-    replaces rfft -> multiply -> irfft -> slice (~5 HBM passes of
-    VPU-bound FFT butterflies) — exactly the same circular-convolution
-    math, built on host in float64.  Cached as numpy (lru_cache must never
+    symmetric).  One matmul and ONE pass over the modulus planes
+    replaces rfft -> multiply -> irfft -> slice (~5 passes over device
+    memory) — exactly the same circular-convolution math, built on host
+    in float64.  Cached as numpy (lru_cache must never
     hold device arrays from inside a trace)."""
     k = np.arange(n)
     nu = np.where(k < (n + 1) // 2, k, k - n) * (sfreq / n)
@@ -78,9 +78,6 @@ def scattering_from_banks(signal: jnp.ndarray, bank1: jnp.ndarray,
                           bank2: jnp.ndarray, sfreq: float,
                           stride: int = 32,
                           interpolate: bool = True,
-                          use_fused: bool = False,
-                          precision: str = "fast3",
-                          interpret: bool = False,
                           lowpass: str = "auto"):
     """Order-2 time scattering: (..., N) -> (S1, S2).
 
@@ -92,12 +89,6 @@ def scattering_from_banks(signal: jnp.ndarray, bank1: jnp.ndarray,
         rates (typically lower, e.g. 1-64 Hz).
       stride: output downsampling; the lowpass cutoff is sfreq/(2*stride),
         so features are stable to translations up to ~stride samples.
-      use_fused: run BOTH modulus layers through the fused Pallas
-        matmul-iDFT kernel (``ops.fused``) with the per-batch power
-        epilogue + sqrt instead of the XLA FFT path.  The second layer is
-        where this pays: its batch is F1 x the first's.  Requires real
-        banks and the kernel geometry (N = N1*128, N1 a power of two in
-        [8, 128]); the ``scattering`` wrapper auto-detects.
 
     Returns:
       S1: (..., F1, N//stride) float32
@@ -114,69 +105,41 @@ def scattering_from_banks(signal: jnp.ndarray, bank1: jnp.ndarray,
             raise ValueError(
                 f"lowpass='matmul' needs stride | N (got N={n}, "
                 f"stride={stride}) — use lowpass='fft' or 'auto'")
-        # Same circular-convolution math as the FFT path, as ONE MXU
-        # matmul and one pass over the modulus planes (the lowpass was the
-        # scattering wall-clock bottleneck — the second-layer rfft/irfft
-        # runs over an (..., F2, F1, N) tensor).  HIGHEST keeps true-f32
-        # accumulation; the operator is tiny (N x N/stride).
+        # Same circular-convolution math as the FFT path, as ONE matmul
+        # and one pass over the modulus planes (the second-layer
+        # rfft/irfft would run over an (..., F2, F1, N) tensor).  HIGHEST
+        # keeps true-f32 products; the operator is tiny (N x N/stride).
         gmat = jnp.asarray(_smooth_decimate_operator(n, int(stride),
                                                      float(sfreq),
                                                      float(cutoff)))
-        mxu_prec = (jax.lax.Precision.DEFAULT if precision == "bf16"
-                    else jax.lax.Precision.HIGHEST)
-        smooth = lambda u: jnp.dot(u, gmat, precision=mxu_prec)
+        smooth = lambda u: jnp.dot(u, gmat,
+                                   precision=jax.lax.Precision.HIGHEST)
     else:
         phi = lowpass_spectrum(n, sfreq, cutoff)
         smooth = lambda u: _smooth_decimate(u, phi, stride)
-    if use_fused:
-        from .fused import fused_power_from_bank
-        modulus = lambda x, bank, analytic: jnp.sqrt(fused_power_from_bank(
-            x, bank, analytic, interpret, precision))
-    else:
-        modulus = lambda x, bank, analytic: abs_from_bank(x, bank, analytic)
-    u1 = modulus(signal, bank1, interpolate)              # (..., F1, N)
+    u1 = abs_from_bank(signal, bank1, interpolate)        # (..., F1, N)
     s1 = smooth(u1)
     # Second layer: U1 rows are real nonnegative signals; batch them all
     # through bank2 in one program.  No analytic trick here — U1 is not
     # zero-mean, and its spectrum is genuinely two-sided.
-    u2 = modulus(u1, bank2, False)                        # (..., F1, F2, N)
+    u2 = abs_from_bank(u1, bank2, False)                  # (..., F1, F2, N)
     u2 = jnp.moveaxis(u2, -2, -3)                         # (..., F2, F1, N)
     s2 = smooth(u2)
     return s1, s2
 
 
 @partial(jax.jit, static_argnames=("sfreq", "stride", "interpolate",
-                                   "use_fused", "precision", "interpret",
                                    "lowpass"))
 def _scattering_jit(signal_r, bank1_r, bank2_r, *, sfreq, stride,
-                    interpolate, use_fused, precision, interpret, lowpass):
+                    interpolate, lowpass):
     return scattering_from_banks(signal_r, bank1_r, bank2_r, sfreq, stride,
-                                 interpolate, use_fused, precision,
-                                 interpret, lowpass)
-
-
-def _fused_ok(n: int, *banks) -> bool:
-    from .fused import _supported
-    return _supported(n) and all(
-        b.ndim == 2 and b.shape[-1] == n and not jnp.iscomplexobj(b)
-        for b in banks)
+                                 interpolate, lowpass)
 
 
 def scattering(signal_r, bank1_r, bank2_r, sfreq: float, stride: int = 32,
-               interpolate: bool = True, use_fused="auto",
-               precision: str = "fast3", interpret: bool = False,
-               lowpass: str = "auto"):
+               interpolate: bool = True, lowpass: str = "auto"):
     """Jitted float-boundary wrapper for ``scattering_from_banks``
-    (real banks; Normal/Twice complex banks are not meaningful here).
-    ``use_fused="auto"`` dispatches both modulus layers to the fused
-    Pallas kernel on TPU when the geometry conforms (see
-    ``scattering_from_banks``)."""
-    if use_fused == "auto":
-        use_fused = (jax.default_backend() == "tpu"
-                     and _fused_ok(signal_r.shape[-1], bank1_r, bank2_r))
+    (real banks; Normal/Twice complex banks are not meaningful here)."""
     return _scattering_jit(signal_r, bank1_r, bank2_r, sfreq=float(sfreq),
                            stride=int(stride), interpolate=interpolate,
-                           use_fused=bool(use_fused),
-                           precision=str(precision),
-                           interpret=bool(interpret),
                            lowpass=str(lowpass))

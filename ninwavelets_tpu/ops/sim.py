@@ -4,7 +4,7 @@ analysis in this framework on signals with KNOWN ground truth.
 
 No reference counterpart (the reference's only test signal is a plain
 sine, ``test.py:17-27``); this mirrors what neurodsp's ``sim`` module
-gives its users, rebuilt TPU-style: shape-static jitted programs keyed
+gives its users, rebuilt as shape-static jitted programs keyed
 on ``jax.random`` keys, spectral shaping as one rfft/irfft pair, burst
 gates as a cycle-level Markov ``lax.scan``.
 
@@ -53,9 +53,8 @@ def powerlaw_noise(seed, shape, exponent: float = -2.0) -> jnp.ndarray:
     (``exponent=-2`` is brown/1/f^2, ``-1`` pink, ``0`` white).
     ``shape`` is (..., N); ``seed`` an int or a PRNG key.
 
-    Shaping runs on a next-power-of-two grid and crops (a non-pow2
-    FFT lowers to a dense O(N^2) DFT matmul on TPU — see
-    ``parallel.pow2_halo``); mean/variance are re-normalized on the
+    Shaping runs on a next-power-of-two grid and crops (the FFT's
+    fastest length — see ``parallel.pow2_halo``); mean/variance are re-normalized on the
     cropped window so the output is exactly mean-free, unit-variance
     for any N."""
     shape = tuple(int(s) for s in np.atleast_1d(shape)) \
@@ -194,8 +193,7 @@ def iaaft_surrogates(seed, x, n_surrogates: int = 19,
     structure (waveform asymmetry, phase coupling) is destroyed.
 
     The default ``n_surrogates=19`` gives a one-sided p = 0.05 rank
-    test.  N must be a power of two (the repo-wide TPU FFT rule —
-    non-pow2 lengths lower to a dense O(N^2) DFT matmul on chip).
+    test.  N must be a power of two (the repo-wide FFT-length rule).
 
     CAVEAT (Schreiber-Schmitz): for strictly PERIODIC signals the
     harmonic amplitude structure is so constraining that the iteration
@@ -206,8 +204,8 @@ def iaaft_surrogates(seed, x, n_surrogates: int = 19,
     x = jnp.asarray(x, jnp.float32)
     n = x.shape[-1]
     if n & (n - 1):
-        raise ValueError(f"N = {n} must be a power of two (TPU FFT "
-                         "rule); pad or crop first")
+        raise ValueError(f"N = {n} must be a power of two (FFT "
+                         "length rule); pad or crop first")
     if n_surrogates < 1 or n_iter < 1:
         raise ValueError("n_surrogates and n_iter must be >= 1")
     return _iaaft_jit(_key(seed), x, n_surrogates=int(n_surrogates),

@@ -10,7 +10,7 @@ this a real oscillation or just the 1/f slope", applied to any power
 spectrum this engine produces (``tc_stats.global_spectrum``, multitaper
 rows, Welch-style means).
 
-Design notes (TPU):
+Design notes:
 * peak SEEDING is data-dependent host work (argmax of the residual, one
   peak at a time, numpy); the REFINEMENT is a fixed-count Adam loop over
   all parameters jointly — one compiled ``lax.scan`` whose gradients

@@ -1,6 +1,6 @@
 """Closed-form wavelet spectra and time-domain formulas as pure jnp functions.
 
-Each function is the TPU-native equivalent of one reference formula
+Each function is the on-device equivalent of one reference formula
 (``/root/reference/ninwavelets/wavelets.py``), written to be stable in
 float32: the Generalized Morse spectrum is evaluated in log-space because
 ``omega ** beta`` overflows float32 at ``omega > ~148`` for ``beta = 17.5``

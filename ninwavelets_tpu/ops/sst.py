@@ -11,11 +11,12 @@ derivative costs one extra bank multiply (the spectrum times ``i 2 pi
 nu``), so the whole transform is two CWTs plus an elementwise phase
 transform and a reassignment pass — all inside one jitted program.
 
-TPU notes: neither XLA scatter-add nor ``jnp.searchsorted`` vectorizes on
-TPU (both scalarize — measured 0.56 s / 1.93 s on a (128, 100, 2048)
-plane); the reassignment instead counts bin edges below omega under a
-scan (bitwise left-bisect) and accumulates row-wise selects — exact f32,
-~30x faster combined.  Works for any monotone analysis-frequency grid.
+The reassignment avoids XLA scatter-add and ``jnp.searchsorted``: it
+counts bin edges below omega (a left-bisect, or its closed form on a
+regular grid) and accumulates row-wise selects — exact f32, every step a
+dense elementwise pass.  Which of scatter and select-reduce is faster on a
+given device is an open measurement (ROADMAP S5).  Works for any monotone
+analysis-frequency grid.
 Boundaries are float-only as everywhere in this package (complex exists
 only inside the program).
 """
@@ -23,14 +24,9 @@ from __future__ import annotations
 
 from functools import partial
 
-import os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-_FUSED_SSQ = os.environ.get("NINW_FUSED_SSQ", "1") != "0"
-
 from jax import lax
 
 from .cwt import analytic_spectrum
@@ -159,11 +155,9 @@ def _reassigned_power(signal, bank, f_grid, sfreq: float, interpolate: bool,
     omega = num / (2.0 * jnp.pi * jnp.maximum(power, 1e-30))
 
     # Row edges: midpoints of the monotone analysis grid map each
-    # instantaneous frequency to its nearest row.  NOT jnp.searchsorted —
-    # its per-element binary search scalarizes on TPU (measured 1.93 s on
-    # a (128, 100, 2048) plane); counting edges below omega under a scan
-    # is the same left-bisect result as one vectorized compare per edge
-    # (63 ms, bitwise-identical).
+    # instantaneous frequency to its nearest row.  Counting edges below
+    # omega under a scan is the same left-bisect result as
+    # jnp.searchsorted (bitwise-identical), as one dense compare per edge.
     n_edges = f_grid.shape[0] - 1
     if uniform_grid is not None:
         # Regular grid: the left-bisect count has a closed form (same
@@ -196,8 +190,7 @@ def _reassigned_power(signal, bank, f_grid, sfreq: float, interpolate: bool,
         idx = jnp.clip(cnt, 0, n_edges).astype(jnp.int32)
     else:
         # Block K edges per scan step: one read of the omega plane serves
-        # K compares (the scan is bandwidth-bound on re-reading the
-        # plane; K=8 measured ~4x on v5e).
+        # K compares (the scan is bound by re-reading the plane).
         k_blk = 8
         pad_e = (-n_edges) % k_blk
         edges = 0.5 * (f_grid[1:] + f_grid[:-1])
@@ -208,8 +201,7 @@ def _reassigned_power(signal, bank, f_grid, sfreq: float, interpolate: bool,
         zero_i = jnp.zeros(omega.shape, jnp.int32)
         if vma_axes:
             # Inside shard_map the scan body output varies over the mesh
-            # axes; the zero init must carry the same varying-axes type
-            # (CLAUDE.md).
+            # axes; the zero init must carry the same varying-axes type.
             zero_i = lax.pcast(zero_i, tuple(vma_axes), to="varying")
 
         def count_block(acc, eb):
@@ -228,20 +220,18 @@ def _reassigned_power(signal, bank, f_grid, sfreq: float, interpolate: bool,
                            omega.shape)
     idx = jnp.where(keep, idx, src)
 
-    # Reassignment "scatter": XLA's scatter-add SERIALIZES on TPU (measured
-    # 562 ms for a (128, 100, 2048) plane where the whole transform stage
-    # is 13 ms).  Row-wise compare-accumulate instead: for every OUTPUT
-    # row o, sum the sources whose target index equals o — a fully
-    # vectorized select+reduce the VPU streams at memory rate (41 ms on
-    # the same plane, exact f32, same values up to summation order).  The
-    # scan keeps the (F_out, F_local, N) one-hot implicit.
+    # Reassignment "scatter" as a row-wise compare-accumulate: for every
+    # OUTPUT row o, sum the sources whose target index equals o — a dense
+    # select+reduce (exact f32, same values as a scatter-add up to
+    # summation order).  The scan keeps the (F_out, F_local, N) one-hot
+    # implicit.
     lead = power.shape[:-2]
     p_flat = power.reshape((-1,) + power.shape[-2:])
     i_flat = idx.reshape(p_flat.shape)
 
     # K output rows per scan step: one read of the (idx, p) planes serves
-    # K selects+reduces (4x measured at K=8 — the scan is bandwidth-bound
-    # on re-reading the plane, not on the VPU selects).
+    # K selects+reduces (the scan is bound by re-reading the plane, not
+    # by the selects).
     k_blk = 8
     n_out_pad = -(-n_out // k_blk) * k_blk
 
@@ -302,8 +292,8 @@ def ssq_mean_power_from_bank(signals: jnp.ndarray, bank: jnp.ndarray, freqs,
     e = signals.shape[0]
     # Stream epoch CHUNKS, not single epochs: the scan exists only to
     # bound memory (the w/dw complex planes are ~210 MB per epoch at the
-    # bench config), and one-epoch steps left the chip latency-bound —
-    # 16 sequential reassignments per call.  The noise-gate floor is per
+    # bench config), and one-epoch steps leave the device latency-bound
+    # on many small sequential reassignments.  The noise-gate floor is per
     # (epoch, channel) (axis (-2,-1) reduce), so chunking is exact; the
     # zero-padded tail epochs contribute only power-0 cells to the sum.
     block = min(int(e), _epoch_block(signals.shape, bank.shape[0]))
@@ -334,8 +324,8 @@ def ssq_mean_power_from_bank(signals: jnp.ndarray, bank: jnp.ndarray, freqs,
 
 def _epoch_block(signals_shape, n_rows, budget_bytes=2 << 30) -> int:
     """Epochs per scan step such that the two complex CWT planes of a
-    step stay under ``budget_bytes`` (~2 GB of the 16 GB HBM — leaves
-    room for the power/omega/count planes XLA materializes alongside)."""
+    step stay under ``budget_bytes`` (~2 GB — leaves room for the
+    power/omega/count planes XLA materializes alongside)."""
     inner = 1
     for s in signals_shape[1:-1]:
         inner *= int(s)
@@ -375,28 +365,11 @@ def _ssq_mean_jit(signals_r, bank_r, f_grid, *, sfreq, interpolate,
 def ssq_mean_power(signals_r, bank_r, freqs, sfreq: float,
                    interpolate: bool = True, rel_threshold: float = 1e-6):
     """Jitted float-boundary wrapper for ``ssq_mean_power_from_bank``
-    (uniform-grid mapping detected on host frequencies).
-
-    On TPU with a conforming (E, C, N) workload, a real bank, and a
-    single lin/log grid, dispatches to the fused Pallas ssq kernel
-    (``ops.fused.fused_ssq_mean_power`` — w and dW through one in-VMEM
-    matmul-iDFT pass, closed-form row map, select-reduce accumulation;
-    measured 825 vs 349 EEG-s/s at the bench config).  Reassigned power
-    is conserved per time column to ~1e-5; individual cells whose
-    instantaneous frequency lands ON a bisect edge may round to the
-    neighboring row at "fast3" precision.  ``NINW_FUSED_SSQ=0`` forces
-    the XLA path for A/B."""
+    (uniform-grid mapping detected on host frequencies)."""
     freqs = np.asarray(freqs, np.float32)
     hint = uniform_grid_hint(freqs)
     signals_r = jnp.asarray(signals_r, jnp.float32)
     bank_arr = jnp.asarray(bank_r)
-    from .fused import fused_ssq_mean_power, supports_ssq
-    if (_FUSED_SSQ and jax.default_backend() == "tpu"
-            and supports_ssq(signals_r.shape, bank_arr, hint,
-                             bool(interpolate))):
-        return fused_ssq_mean_power(
-            signals_r, bank_arr, uniform_grid=hint, sfreq=float(sfreq),
-            rel_threshold=float(rel_threshold), interpolate=interpolate)
     return _ssq_mean_jit(signals_r, bank_arr, jnp.asarray(freqs),
                          sfreq=float(sfreq), interpolate=interpolate,
                          rel_threshold=float(rel_threshold),

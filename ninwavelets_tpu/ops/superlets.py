@@ -9,7 +9,7 @@ localization, long wavelets the frequency localization, and the product
 keeps the sharpest of both (a multiplicative AND across bandwidths),
 beating any single fixed-cycle wavelet.
 
-TPU shape: the member wavelets are just more rows of the same
+Layout: the member wavelets are just more rows of the same
 frequency-domain machinery — ``O`` stacked real Morlet banks ride one
 ``lax.scan`` over the shared signal spectrum (one rFFT total), each order
 adding a weighted log-power plane; memory stays O(F*N) regardless of
@@ -126,8 +126,7 @@ def superlet_power_from_banks(signal: jnp.ndarray, banks: jnp.ndarray,
     zero = jnp.zeros(signal.shape[:-1] + (banks.shape[1],
                                           signal.shape[-1]), jnp.float32)
     if vma_axes:
-        # shard_map scan carries must match the body's varying-axes type
-        # (CLAUDE.md: lax.scan zero-inits inside shard_map).
+        # shard_map scan carries must match the body's varying-axes type.
         zero = lax.pcast(zero, tuple(vma_axes), to="varying")
 
     def step(acc, xs):

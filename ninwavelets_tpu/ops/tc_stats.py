@@ -7,7 +7,7 @@ to a TFR before interpreting it, formulated for this engine's
 frequency-parameterized banks (T&C work in scales; here everything is a
 function of the analysis frequency).
 
-Design notes (TPU):
+Design notes:
 * significance thresholds and the background spectrum are tiny (F,)
   vectors — computed with jnp so they fuse into the same program as the
   power reduction when jitted;

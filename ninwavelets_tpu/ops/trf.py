@@ -7,7 +7,7 @@ No reference counterpart — the TRF is the standard analysis for
 continuous-stimulus paradigms: ``r(t) = sum_k sum_l w[k, l]
 s_k(t - lag_l) + noise``, fitted by ridge regression over a lag window.
 
-TPU design: the lagged design matrix never materializes — its Gram
+Design: the lagged design matrix never materializes — its Gram
 matrix is assembled from STIMULUS CROSS-CORRELATIONS:
 ``XtX[(k,i),(j,l)] = sum_t s_k(t - lag_i) s_j(t - lag_l)`` depends only
 on the lag DIFFERENCE up to edge terms, but we compute it exactly as

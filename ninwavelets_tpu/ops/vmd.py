@@ -10,7 +10,7 @@ cutting the spectrum at detected boundaries it lets K Wiener-filter
 modes and their center frequencies converge jointly, which handles
 overlapping or drifting components the hard segmentation cannot.
 
-Design notes (TPU):
+Design notes:
 * every ADMM update is closed-form ON THE rfft GRID — the mode update is
   a Wiener filter ``(x - sum_others + lam/2) / (1 + alpha (w-w_k)^2)``,
   the center-frequency update a power-weighted mean — so one iteration

@@ -8,7 +8,7 @@ transform splits every node, tiling the frequency axis into 2^j equal
 bands at level j — the right tool when the interesting structure sits in
 a narrow high-frequency band an octave decomposition smears out.
 
-Same TPU-first formulation as ``ops/dwt.py``: each packet node's
+Same device formulation as ``ops/dwt.py``: each packet node's
 transfer function is a product of a-trous-upsampled base-filter DFTs
 built once on host (Percival & Walden ch. 6 — their g/h assignment rule
 ``n mod 4 in {0, 3} -> g`` bakes the sequency (frequency) ordering into

@@ -2,8 +2,7 @@
 
 The lower-level ``sharded_*`` functions take a prebuilt (F, N) bank; these
 wrappers accept a ``WaveletBase`` (or ``WaveletDef``) plus frequencies,
-build the bank on device, choose the mesh, shard the batch, and dispatch —
-the fused Pallas kernel per shard on TPU meshes, the XLA path elsewhere.
+build the bank on device, choose the mesh, shard the batch, and dispatch.
 """
 from __future__ import annotations
 
@@ -16,8 +15,7 @@ from jax.sharding import PartitionSpec as P
 
 from ..ops.bank import WaveletDef, make_fft_bank_ri
 from .mesh import DATA_AXIS, auto_mesh, shard_batch
-from .sharded import (sharded_fused_itc, sharded_fused_mean_power,
-                      sharded_itc, sharded_mean_power)
+from .sharded import sharded_itc, sharded_mean_power
 
 
 def _as_f32(signals):
@@ -38,22 +36,12 @@ def _resolve(wavelet):
 
 
 def _build(wavelet, freqs, n, sfreq, interpolate):
-    """(real, imag-or-None) bank via the jitted builder — complex64 must
-    never appear eagerly on the TPU runtime (see CLAUDE.md)."""
+    """(real, imag-or-None) bank via the jitted float-pair builder."""
     wdef, _ = _resolve(wavelet)
     rwl = float(getattr(wavelet, "real_wave_length", 1.0))
     return make_fft_bank_ri(wdef,
                             jnp.asarray(freqs, jnp.float32),
                             n, float(sfreq), interpolate, rwl)
-
-
-def _use_fused(n: int) -> bool:
-    """Fused kernel on TPU with conforming geometry (N = N1*128, N1 a
-    power of two in [8, 128]) — same gate as ``ops.fused.supports``
-    (real and complex banks both ride the kernel); everything else takes
-    the XLA path."""
-    from ..ops.fused import _supported
-    return jax.default_backend() == "tpu" and _supported(n)
 
 
 def distributed_mean_power(signals, wavelet, freqs, sfreq: float,
@@ -63,8 +51,7 @@ def distributed_mean_power(signals, wavelet, freqs, sfreq: float,
 
     Epochs are sharded over the mesh ``data`` axis (zero-padded to
     divisibility; the mean is rescaled to the true count), bank rows over
-    ``freq``.  On TPU meshes with a real bank each shard runs the fused
-    Pallas kernel.
+    ``freq``.
 
     Args:
       signals: (E, C, N) host or device array.
@@ -88,9 +75,8 @@ def distributed_mean_power(signals, wavelet, freqs, sfreq: float,
         signals = jnp.pad(signals, ((0, pad_e), (0, 0), (0, 0)))
     bank_r, bank_i = _build(wavelet, freqs, n, sfreq, interpolate)
     dev = shard_batch(signals, mesh, P(DATA_AXIS))
-    fn = (sharded_fused_mean_power if _use_fused(n)
-          else sharded_mean_power)
-    out = fn(dev, bank_r, bank_i, mesh=mesh, interpolate=interpolate)
+    out = sharded_mean_power(dev, bank_r, bank_i, mesh=mesh,
+                             interpolate=interpolate)
     if pad_e:
         out = out * ((e + pad_e) / e)   # zero epochs add zero power
     return out
@@ -115,5 +101,5 @@ def distributed_itc(signals, wavelet, freqs, sfreq: float, mesh=None,
                          "for itc — zero-padding would inject NaN phases")
     bank_r, bank_i = _build(wavelet, freqs, n, sfreq, interpolate)
     dev = shard_batch(signals, mesh, P(DATA_AXIS))
-    fn = sharded_fused_itc if _use_fused(n) else sharded_itc
-    return fn(dev, bank_r, bank_i, mesh=mesh, interpolate=interpolate)
+    return sharded_itc(dev, bank_r, bank_i, mesh=mesh,
+                       interpolate=interpolate)

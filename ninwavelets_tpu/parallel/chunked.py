@@ -5,21 +5,21 @@ The reference FFTs the whole signal in one shot (``/root/reference/
 ninwavelets/base.py:399``) — a 10-minute 1 kHz recording is a single 600k-
 point FFT on one device, and its only long-signal story is "cupy is faster
 for long waves" (``README.md:461-465``).  Here the time axis is sharded over
-the mesh's ``time`` axis and each chip convolves its own chunk:
+the mesh's ``time`` axis and each device convolves its own chunk:
 
-1. every chip holds a contiguous chunk of L = N / n_time samples;
-2. each chip fetches ``halo`` samples from both neighbors with two
-   ``lax.ppermute`` shifts over ICI (edge chips get zeros — i.e. the global
+1. every device holds a contiguous chunk of L = N / n_time samples;
+2. each device fetches ``halo`` samples from both neighbors with two
+   ``lax.ppermute`` shifts (edge devices get zeros — i.e. the global
    boundary is zero-padded, *linear* convolution, where the reference's
    whole-signal FFT is circular; interiors match to float32 for any wavelet
    whose time support fits in the halo);
-3. the chip runs the ordinary fused FFT x bank x iFFT on its extended
+3. the device runs the ordinary FFT x bank x iFFT on its extended
    (L + 2*halo)-sample chunk against a bank synthesized at that length —
    the bank grid maps bin i to physical frequency i * sfreq / n for any n
    (``ops.grids.fft_bin_freqs``), so the *same continuous transfer function*
    is sampled at chunk resolution;
 4. the central L samples of the result are kept; outputs stay sharded over
-   time (the (F, N) plane is never resident on one chip).
+   time (the (F, N) plane is never resident on one device).
 
 Halo sizing: the wavelet family's time support at the *lowest* analysis
 frequency (Morse/Morlet have infinite support; ``halo_samples`` truncates at
@@ -82,9 +82,8 @@ def halo_samples(wdef: WaveletDef, min_freq: float, sfreq: float,
     n = int(2 ** np.ceil(np.log2(sfreq * probe_seconds)))
     grid = np.asarray(fft_bin_freqs(n, sfreq, dtype=jnp.float32),
                       dtype=np.float64)
-    # One jitted program with float boundaries: eager jnp formula evaluation
-    # compiles per-op on the TPU runtime (minutes at 16k-sample probes) and
-    # complex outputs cannot cross the boundary there.
+    # One jitted program with float boundaries: eager jnp formula
+    # evaluation would dispatch (and compile) one op at a time.
     sr, si = _probe_spectrum(wdef, jnp.asarray(grid, jnp.float32),
                              jnp.float32(min_freq))
     spec = np.asarray(sr, np.float64) + 1j * np.asarray(si, np.float64)
@@ -102,9 +101,8 @@ def halo_samples(wdef: WaveletDef, min_freq: float, sfreq: float,
 
 def pow2_halo(window: int, min_halo: int) -> int:
     """Smallest halo >= ``min_halo`` making ``window + 2*halo`` a power of
-    two.  XLA lowers non-power-of-two FFTs on TPU to a dense DFT matmul —
-    O(N^2) memory (a 66k-point window would allocate a 17 GB DFT matrix) —
-    so extended chunk lengths must stay powers of two on TPU.
+    two, the FFT's fastest length (non-power-of-two lengths take slower
+    mixed-radix or Bluestein plans).
     """
     if window % 2:
         raise ValueError("window length must be even")
@@ -117,9 +115,8 @@ def chunk_bank(wdef: WaveletDef, freqs, chunk_len: int, halo: int,
     """(F, chunk_len + 2*halo) bank for the extended chunks, as a float
     (real, imag-or-None) pair ready for ``chunked_*`` below.
 
-    Built through the jitted float-boundary ``make_fft_bank_ri`` — an eager
-    ``bank.real``/``bank.imag`` on a complex bank would hit the TPU
-    runtime's unsupported eager-complex path (see CLAUDE.md)."""
+    Built through the jitted float-boundary ``make_fft_bank_ri`` (the
+    package's float-pair convention, see ``ops.cwt``)."""
     return make_fft_bank_ri(wdef, jnp.asarray(freqs, jnp.float32),
                             chunk_len + 2 * halo, sfreq, interpolate)
 
@@ -192,56 +189,3 @@ def chunked_cwt_ri(signal_r, bank_r, bank_i=None, *, mesh: Mesh, halo: int,
     """Sequence-parallel raw coefficients as a (real, imag) float pair."""
     return _chunk_call(mesh, signal_r, bank_r, bank_i, halo, interpolate,
                        lambda c: (c.real, c.imag), n_outs=2)
-
-
-@partial(jax.jit, static_argnames=("mesh", "halo", "interpolate",
-                                   "precision", "interpret"))
-def chunked_fused_power(signal_r, bank_r, *, mesh: Mesh, halo: int,
-                        interpolate: bool = True,
-                        precision: str = "fast3",
-                        interpret: bool = False):
-    """Sequence-parallel ``|cwt|**2`` with the fused Pallas kernel as the
-    per-chunk compute: same halo exchange and output layout as
-    ``chunked_power``, but each chip runs the matmul-iDFT mega-kernel on
-    its extended chunk instead of the XLA FFT path.
-
-    Constraints: real bank only, and the EXTENDED chunk length
-    (N/n_time + 2*halo) must satisfy ``ops.fused._supported`` — the
-    ``pow2_halo`` sizing produces exactly such lengths up to 16384.
-    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU-mesh
-    tests).
-    """
-    from ..ops.fused import fused_power_from_bank
-    n_dev = mesh.shape[TIME_AXIS]
-    ndim = signal_r.ndim
-    sig_spec = P(*([None] * (ndim - 1)), TIME_AXIS)
-    out_spec = P(*([None] * (ndim - 1)), None, TIME_AXIS)
-
-    def local(sig, br):
-        ext = _exchange_halos(sig, halo, n_dev)
-        p = fused_power_from_bank(ext, br, interpolate, interpret, precision)
-        return p[..., halo:p.shape[-1] - halo]
-
-    # check_vma=False: pallas_call outputs carry no varying-axes type (see
-    # sharded.py); the out_specs are explicit.
-    return jax.shard_map(local, mesh=mesh, in_specs=(sig_spec, P(None, None)),
-                         out_specs=out_spec,
-                         check_vma=False)(signal_r, bank_r)
-
-
-def chunked_power_auto(signal_r, bank_r, bank_i=None, *, mesh: Mesh,
-                       halo: int, interpolate: bool = False,
-                       precision: str = "fast3"):
-    """``chunked_power`` with automatic kernel dispatch: the fused Pallas
-    kernel when the per-chip extended chunk conforms (real bank, TPU,
-    extended length = N1*128 with N1 a power of two in [8, 128]), the XLA
-    FFT path otherwise — same result either way."""
-    from ..ops.fused import _supported
-    ext_len = signal_r.shape[-1] // mesh.shape[TIME_AXIS] + 2 * halo
-    if (bank_i is None and jax.default_backend() == "tpu"
-            and _supported(ext_len)):
-        return chunked_fused_power(signal_r, bank_r, mesh=mesh, halo=halo,
-                                   interpolate=interpolate,
-                                   precision=precision)
-    return chunked_power(signal_r, bank_r, bank_i, mesh=mesh, halo=halo,
-                         interpolate=interpolate)

@@ -2,20 +2,21 @@
 
 The reference has no distributed backend at all (SURVEY §2.2: its only
 parallel code is an *unused* ``multiprocessing`` pool,
-``/root/reference/ninwavelets/tooltip.py:29-58``).  The TPU build scales the
+``/root/reference/ninwavelets/tooltip.py:29-58``).  This build scales the
 workload's three embarrassing/structured axes over a ``jax.sharding.Mesh``:
 
 * ``data`` — epochs x channels (pure data parallel; the reference loops these
   in Python, ``mneutils.py:37-40``),
 * ``freq`` — the analysis-frequency axis of the (F, N) bank (bank/tensor
-  parallel: each chip synthesizes its own frequency slice on device —
+  parallel: each device synthesizes its own frequency slice —
   recompute beats transfer),
 * ``time`` — the signal's time axis for long recordings (sequence parallel:
   chunked overlap-save convolution with ``ppermute`` halo exchange, see
   ``ninwavelets_tpu.parallel.chunked``).
 
-All collectives ride ICI via XLA (`psum`/`ppermute` inside ``shard_map``);
-there is no NCCL/MPI analog to manage.
+All collectives are XLA's (`psum`/`ppermute` inside ``shard_map``), which
+hands them to the device's collective library (NCCL on GPUs); there is no
+communicator to manage by hand.
 """
 from __future__ import annotations
 
@@ -97,8 +98,9 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None) -> None:
     """Initialize multi-host JAX (``jax.distributed.initialize``) so a mesh
-    can span hosts; no-op when already initialized.  On Cloud TPU pods all
-    arguments are auto-detected from the environment.
+    can span hosts; no-op when already initialized.  Pass the coordinator
+    address (``host:port``), process count and this process's id unless
+    the cluster environment supplies them.
     """
     import jax.distributed as jd
     try:

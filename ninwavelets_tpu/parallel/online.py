@@ -114,7 +114,7 @@ class OnlineCWT:
         rel = np.asarray(starts, np.int64) - self._base
         ext = f32_gather(flat, rel, s.window, s.halo).reshape(
             (len(starts),) + self._lead + (s.window + 2 * s.halo,))
-        batch = s._effective_batch(self._lead)
+        batch = s.batch
         out: List[Tuple[int, np.ndarray]] = []
         i = 0
         while i < len(starts):

@@ -5,17 +5,17 @@ host (``/root/reference/ninwavelets/mneutils.py:26-71``).  Here the same math
 runs under ``shard_map`` over a (data, freq) mesh:
 
 * the (E, C, N) epochs block is sharded over ``data`` on the epoch axis,
-* the (F, N) bank is sharded over ``freq`` — each chip holds (and can
+* the (F, N) bank is sharded over ``freq`` — each device holds (and can
   synthesize) only its own frequency slice,
 * the epoch-mean power and inter-trial coherence reductions finish with one
-  ``pmean`` over ``data`` (the only cross-chip traffic; the frequency axis
+  ``pmean`` over ``data`` (the only cross-device traffic; the frequency axis
   needs no collective at all),
 * outputs stay sharded over ``freq`` so the (C, F, N) TFR plane never has to
-  be resident on one chip; gathering happens only if the caller fetches the
+  be resident on one device; gathering happens only if the caller fetches the
   array to host.
 
-Program boundaries are float-only (real/imag pairs) — see ``ops.cwt`` for why
-complex64 must not cross jit/host boundaries on TPU runtimes.
+Program boundaries are float-only (real/imag pairs), as everywhere in the
+package (see ``ops.cwt``).
 """
 from __future__ import annotations
 
@@ -27,38 +27,24 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops.cwt import _as_bank, _as_signal, _scan_mean, cwt_from_bank
+from ..ops.cwt import (_as_bank, _as_signal, _kernel_or_xla_mean_power,
+                       _scan_mean, cwt_from_bank)
 from .mesh import DATA_AXIS, FREQ_AXIS
 
 _BANK_SPEC = P(FREQ_AXIS, None)
 
 
-def _shard_call(mesh, local, sig_spec, out_specs, signals_r, bank_r, bank_i,
-                check_vma: bool = True):
+def _shard_call(mesh, local, sig_spec, out_specs, signals_r, bank_r, bank_i):
     """Dispatch ``local(sig, bank_r, bank_i_or_None)`` through shard_map,
     with the imag bank plumbed only when it exists (its presence is static
-    under jit, so the two traces are distinct programs).
-    ``check_vma=False`` is for locals whose compute runs through
-    ``pallas_call`` (kernel outputs carry no varying-axes type, so
-    shard_map's replication checker cannot track them; the out_specs are
-    explicit and the pmean/psum reductions make the data axis replicated
-    by construction)."""
+    under jit, so the two traces are distinct programs)."""
     if bank_i is None:
         fn = lambda sig, br: local(sig, br, None)
         return jax.shard_map(fn, mesh=mesh, in_specs=(sig_spec, _BANK_SPEC),
-                             out_specs=out_specs,
-                             check_vma=check_vma)(signals_r, bank_r)
+                             out_specs=out_specs)(signals_r, bank_r)
     return jax.shard_map(local, mesh=mesh,
                          in_specs=(sig_spec, _BANK_SPEC, _BANK_SPEC),
-                         out_specs=out_specs,
-                         check_vma=check_vma)(signals_r, bank_r, bank_i)
-
-
-def _shard_call_novma(mesh, local, sig_spec, out_specs, signals_r, bank_r,
-                      bank_i):
-    """``_shard_call`` with ``check_vma=False`` (see there)."""
-    return _shard_call(mesh, local, sig_spec, out_specs, signals_r, bank_r,
-                       bank_i, check_vma=False)
+                         out_specs=out_specs)(signals_r, bank_r, bank_i)
 
 
 @partial(jax.jit, static_argnames=("mesh", "interpolate"))
@@ -66,17 +52,17 @@ def sharded_mean_power(signals_r, bank_r, bank_i=None, *, mesh: Mesh,
                        interpolate: bool = False):
     """Epoch-mean power TFR over the mesh: (E, ..., N) -> (..., F, N).
 
-    Epochs sharded over ``data``, bank rows over ``freq``; each shard streams
-    its local epochs through the fused CWT+|.|^2 scan, then one ``pmean``
-    over ``data`` completes the global epoch mean (reference semantics:
-    ``mneutils.py:42-55``).  E must be divisible by the ``data`` axis size
-    (use ``mesh.pad_to_multiple`` on the host otherwise).
+    Epochs sharded over ``data``, bank rows over ``freq``; each shard
+    reduces its local epochs as one device would (the Triton kernel on
+    CUDA devices where it applies, the CWT+|.|^2 scan otherwise), then one
+    ``pmean`` over ``data`` completes the global epoch mean (reference
+    semantics: ``mneutils.py:42-55``).  E must be divisible by the
+    ``data`` axis size (use ``mesh.pad_to_multiple`` on the host
+    otherwise).
     """
     def local(sig, br, bi):
-        bank = _as_bank(br, bi)
-        local_mean = _scan_mean(
-            sig, bank, interpolate,
-            lambda c: jnp.square(c.real) + jnp.square(c.imag),
+        local_mean = _kernel_or_xla_mean_power(
+            sig, _as_bank(br, bi), interpolate,
             vma_axes=(DATA_AXIS, FREQ_AXIS))
         return lax.pmean(local_mean, DATA_AXIS)
 
@@ -145,39 +131,6 @@ def sharded_power(signals_r, bank_r, bank_i=None, *, mesh: Mesh,
 
     return _shard_call(mesh, local, P(DATA_AXIS, *([None] * (ndim - 1))),
                        out_spec, signals_r, bank_r, bank_i)
-
-
-@partial(jax.jit, static_argnames=("mesh", "interpolate", "precision",
-                                   "interpret"))
-def sharded_fused_mean_power(signals_r, bank_r, bank_i=None, *, mesh: Mesh,
-                             interpolate: bool = True,
-                             precision: str = "fast3",
-                             interpret: bool = False):
-    """Epoch-mean power over the mesh with the fused Pallas kernel as the
-    per-shard compute: (E, C, N) -> (C, F, N).
-
-    Same sharding layout as ``sharded_mean_power`` (epochs over ``data``,
-    bank rows over ``freq``, one ``pmean``), but each shard runs the
-    matmul-iDFT mega-kernel instead of the XLA FFT path — multi-chip
-    scale-out AND the fused hot loop at once.  Constraints:
-    N = (N/128)*128 with N/128 a power of two in [8, 128]; real or complex
-    bank (as a float pair); any local epoch count.  ``interpret=True``
-    runs the kernel in the Pallas interpreter (CPU-mesh tests).
-    """
-    from ..ops.fused import fused_mean_power_from_bank
-
-    def local(sig, br, bi=None):
-        local_mean = fused_mean_power_from_bank(sig, _as_bank(br, bi),
-                                                interpolate, interpret,
-                                                precision)
-        return lax.pmean(local_mean, DATA_AXIS)
-
-    # check_vma=False: pallas_call outputs carry no varying-axes type, so
-    # shard_map's replication checker cannot track them; the out_specs are
-    # explicit and the pmean makes the data axis replicated by construction.
-    out_spec = P(*([None] * (signals_r.ndim - 2)), FREQ_AXIS, None)
-    return _shard_call_novma(mesh, local, P(DATA_AXIS), out_spec,
-                             signals_r, bank_r, bank_i)
 
 
 @partial(jax.jit, static_argnames=("mesh", "interpolate"))
@@ -332,34 +285,6 @@ def sharded_phase_lag(sigs_a, sigs_b, bank_r, *, mesh: Mesh,
         out_specs=out_spec)(sigs_a, sigs_b, bank_r)
 
 
-@partial(jax.jit, static_argnames=("mesh", "method", "interpolate",
-                                   "precision", "interpret", "eps"))
-def sharded_fused_phase_lag(sigs_a, sigs_b, bank_r, *, mesh: Mesh,
-                            method: str = "wpli", interpolate: bool = True,
-                            precision: str = "fast3",
-                            interpret: bool = False, eps: float = 0.0):
-    """Phase-lag connectivity over the mesh with the fused kernel's
-    ``phaselag`` epilogue per shard (real banks): same layout and
-    reduction as ``sharded_phase_lag`` (raw ``psum`` — see there for why
-    no rescaling), one kernel pass per local pair chunk."""
-    from ..ops.connectivity import phase_lag_from_sums
-    from ..ops.fused import fused_phase_lag_sums
-    n_epochs = sigs_a.shape[0]
-
-    def local(sa, sb, br):
-        sums = fused_phase_lag_sums(sa, sb, br, interpolate, interpret,
-                                    precision,
-                                    vma_axes=(DATA_AXIS, FREQ_AXIS))
-        sums = tuple(lax.psum(s, DATA_AXIS) for s in sums)
-        return phase_lag_from_sums(sums, n_epochs, method, eps)
-
-    out_spec = P(*([None] * (sigs_a.ndim - 2)), FREQ_AXIS, None)
-    return jax.shard_map(local, mesh=mesh,
-                         in_specs=(P(DATA_AXIS), P(DATA_AXIS), _BANK_SPEC),
-                         out_specs=out_spec,
-                         check_vma=False)(sigs_a, sigs_b, bank_r)
-
-
 @partial(jax.jit, static_argnames=("mesh", "interpolate", "eps"))
 def sharded_ppc(sigs_a, sigs_b, bank_r, *, mesh: Mesh,
                 interpolate: bool = False, eps: float = 0.0):
@@ -428,7 +353,7 @@ def sharded_nm_plv(sigs_a, sigs_b, bank_a_r, bank_b_r, *, mesh: Mesh,
 
     Same layout as ``sharded_plv`` — the ``exp(i(n phi_a - m phi_b))``
     epoch mean is linear in epochs, and the row-paired banks shard
-    together over ``freq`` (row k of both banks lives on the same chip,
+    together over ``freq`` (row k of both banks lives on the same device,
     so the pairing never crosses shards).  Mesh result == single-device
     ``ops.connectivity.nm_plv_from_bank``.
     """
@@ -750,33 +675,6 @@ def sharded_reassigned_mean_power(signals_r, bank_r, f_grid, *, mesh: Mesh,
                             jnp.asarray(f_grid, jnp.float32))
 
 
-@partial(jax.jit, static_argnames=("mesh", "interpolate", "precision",
-                                   "interpret"))
-def sharded_fused_itc(signals_r, bank_r, bank_i=None, *, mesh: Mesh,
-                      interpolate: bool = True, precision: str = "fast3",
-                      interpret: bool = False):
-    """Inter-trial coherence over the mesh with the fused kernel per shard.
-
-    The unit-phase mean is linear in epochs, so each shard accumulates its
-    local unit-phase sum (the kernel's itc epilogue), ``pmean`` over
-    ``data`` completes the global mean, and the final abs runs on the
-    reduced planes.  Same constraints as ``sharded_fused_mean_power``.
-    """
-    from ..ops.fused import _itc_sums
-
-    def local(sig, br, bi=None):
-        e = sig.shape[0]
-        sr, si = _itc_sums(sig, _as_bank(br, bi), interpolate, interpret,
-                           precision)
-        sr = lax.pmean(sr / e, DATA_AXIS)
-        si = lax.pmean(si / e, DATA_AXIS)
-        return jnp.sqrt(sr * sr + si * si)
-
-    out_spec = P(*([None] * (signals_r.ndim - 2)), FREQ_AXIS, None)
-    return _shard_call_novma(mesh, local, P(DATA_AXIS), out_spec,
-                             signals_r, bank_r, bank_i)
-
-
 @partial(jax.jit, static_argnames=("mesh", "interpolate", "method",
                                    "n_bins"))
 def sharded_pac(sigs_r, bank_phase_r, bank_amp_r, *, mesh: Mesh,
@@ -817,19 +715,19 @@ def sharded_mean_power_grad(signals_r, bank_r, g, *, mesh: Mesh,
     TFR wrt both the signals AND the bank (learnable wavelets).
 
     Layout: epochs shard over ``data``, bank rows over ``freq`` (the bank
-    gradient stays freq-sharded — each chip owns the gradient of its own
+    gradient stays freq-sharded — each device owns the gradient of its own
     rows); the global mean is a pmean of shard means, so each shard's
     local VJP runs with cotangent g / n_data, the signal gradient stays
     epoch-sharded with NO collective, and one ``psum`` over ``data``
     completes the bank gradient.  Returns (power, dsignals, dbank).
     """
-    from ..ops.fused import _mean_power_bwd
+    from ..ops.cwt import _mean_power_bwd
 
     def local(sig, br, gg):
         d = lax.psum(1, DATA_AXIS)
         # Forward: _scan_mean directly (not mean_power_from_bank) so the
-        # scan zero init carries the shard_map varying-axes type
-        # (CLAUDE.md).  Backward: the ANALYTIC adjoint, not jax.vjp —
+        # scan zero init carries the shard_map varying-axes type.
+        # Backward: the ANALYTIC adjoint, not jax.vjp —
         # autodiffing the rfft path under shard_map trips a cotangent
         # varying-type mismatch in the fft transpose rule, and the
         # analytic pipeline is the gated gradient path anyway.
@@ -852,71 +750,6 @@ def sharded_mean_power_grad(signals_r, bank_r, g, *, mesh: Mesh,
         in_specs=(P(DATA_AXIS), _BANK_SPEC, p_spec),
         out_specs=(p_spec, P(DATA_AXIS), _BANK_SPEC))(
         signals_r, bank_r, g)
-
-
-@partial(jax.jit, static_argnames=("mesh", "interpolate", "precision",
-                                   "interpret", "eps"))
-def sharded_fused_coherence(sigs_a, sigs_b, bank_r, *, mesh: Mesh,
-                            interpolate: bool = True,
-                            precision: str = "fast3",
-                            interpret: bool = False, eps: float = 1e-12):
-    """Epoch-wise wavelet coherence over the mesh with the fused kernel's
-    ``coherence`` epilogue per shard (real banks): epochs over ``data``,
-    bank rows over ``freq``; all four epoch sums are linear, so one
-    ``pmean`` each over ``data`` completes them before the final ratio.
-    Same layout/semantics as ``sharded_coherence`` (the XLA per-shard
-    variant, which also handles complex banks)."""
-    from ..ops.extensions import coherence_from_sums
-    from ..ops.fused import fused_coherence_sums
-
-    e = sigs_a.shape[0]
-
-    def local(sa, sb, br):
-        sums = fused_coherence_sums(sa, sb, br, interpolate, interpret,
-                                    precision,
-                                    vma_axes=(DATA_AXIS, FREQ_AXIS))
-        xr, xi, pa, pb = (lax.pmean(x / e, DATA_AXIS) for x in sums)
-        # pmean of sums/e == global sums / E_total / n_data; the ratio in
-        # coherence_from_sums is scale-invariant in that common factor.
-        return coherence_from_sums(xr, xi, pa, pb, 1, eps,
-                                   vma_axes=(FREQ_AXIS,))
-
-    out_spec = P(*([None] * (sigs_a.ndim - 2)), FREQ_AXIS, None)
-    return jax.shard_map(local, mesh=mesh,
-                         in_specs=(P(DATA_AXIS), P(DATA_AXIS), _BANK_SPEC),
-                         out_specs=out_spec,
-                         check_vma=False)(sigs_a, sigs_b, bank_r)
-
-
-@partial(jax.jit, static_argnames=("mesh", "interpolate", "precision",
-                                   "interpret"))
-def sharded_fused_power_itc(signals_r, bank_r, bank_i=None, *, mesh: Mesh,
-                            interpolate: bool = True,
-                            precision: str = "fast3",
-                            interpret: bool = False):
-    """Epoch-mean power AND inter-trial coherence over the mesh in ONE
-    fused-kernel pass per shard (the ``power_itc`` epilogue): epochs over
-    ``data``, bank rows over ``freq``; all three epoch sums are linear, so
-    one ``pmean`` each over ``data`` completes them and the division by
-    the LOCAL epoch count finishes the global means.  Same constraints as
-    ``sharded_fused_mean_power``; E must be divisible by the ``data`` axis size.
-    """
-    from ..ops.fused import _power_itc_sums
-
-    def local(sig, br, bi=None):
-        e = sig.shape[0]
-        ps, sr, si = _power_itc_sums(sig, _as_bank(br, bi), interpolate,
-                                     interpret, precision,
-                                     vma_axes=(DATA_AXIS, FREQ_AXIS))
-        ps = lax.pmean(ps / e, DATA_AXIS)
-        sr = lax.pmean(sr / e, DATA_AXIS)
-        si = lax.pmean(si / e, DATA_AXIS)
-        return ps, jnp.sqrt(sr * sr + si * si)
-
-    out_spec = P(*([None] * (signals_r.ndim - 2)), FREQ_AXIS, None)
-    return _shard_call_novma(mesh, local, P(DATA_AXIS),
-                             (out_spec, out_spec), signals_r, bank_r,
-                             bank_i)
 
 
 @partial(jax.jit, static_argnames=("mesh", "n_perm", "threshold", "na",
@@ -1241,8 +1074,8 @@ _SHARDED_FN_CACHE: dict = {}
 
 def _cache_put(key, fn):
     """Bounded insert: a sweep over many distinct configs must not
-    accumulate live jitted shard_map wrappers without limit (the
-    65530-memory-mapping ceiling class — CLAUDE.md)."""
+    accumulate live jitted shard_map wrappers without limit (each holds
+    compiled code mappings; Linux caps a process at 65530)."""
     if len(_SHARDED_FN_CACHE) > 64:
         _SHARDED_FN_CACHE.clear()
     _SHARDED_FN_CACHE[key] = fn
@@ -1408,8 +1241,7 @@ def sharded_covariance(x, *, mesh: Mesh) -> jnp.ndarray:
     # keyed on the MESH only: the local fn reads shapes off its shard
     # (global E = local * ndata is trace-static), so jit's own per-shape
     # cache handles new (E, C, N) without a new wrapper per shape — a
-    # shape-keyed entry per sweep point was a live-executable leak (the
-    # 65530-mapping-ceiling class, CLAUDE.md)
+    # shape-keyed entry per sweep point was a live-executable leak
     cache_key = ("spatial_cov", mesh)
     if cache_key not in _SHARDED_FN_CACHE:
         def local(xl):

@@ -3,7 +3,7 @@ from setuptools import find_packages, setup
 setup(
     name='ninwavelets_tpu',
     version='0.1.0',
-    description='TPU-native analytic-wavelet transform engine (JAX/XLA/Pallas)',
+    description='Analytic-wavelet transform engine for accelerators (JAX/XLA/Pallas)',
     long_description='Frequency-domain wavelet banks (Generalized Morse, '
                      'Morlet/Gabor, Shannon, MexicanHat, Haar) synthesized '
                      'on device; CWT as batched FFT x bank x iFFT; fused '

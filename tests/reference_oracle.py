@@ -212,3 +212,103 @@ def snr_db(ref: np.ndarray, test: np.ndarray) -> float:
     if p_err == 0:
         return np.inf
     return 10.0 * np.log10(p_sig / p_err)
+
+
+# ---------------------------------------------------------------------------
+# Epoch reductions — EpochsWavelet (mneutils.py:42-71) and the pairwise
+# statistics built from the same per-epoch coefficients, float64.  Each
+# takes the (F, N) bank the multiply sees (``make_bank``, or an engine bank
+# cast up) so a test can isolate the reduction from the synthesis.
+# ---------------------------------------------------------------------------
+
+
+def epoch_coefficients(signal: np.ndarray, bank: np.ndarray,
+                       interpolate: bool) -> np.ndarray:
+    """(..., N) signal(s) x (F, N) bank -> (..., F, N) complex128 CWT
+    coefficients (base.py:398-406, vectorized over leading axes)."""
+    spec = fft(np.asarray(signal, np.float64), axis=-1)
+    if interpolate:
+        spec[..., int(spec.shape[-1] / 2):] = 0.0        # ``alias``
+    return ifft(np.asarray(bank, np.complex128) * spec[..., None, :],
+                axis=-1)
+
+
+def _epoch_mean(signals, bank, interpolate, per_epoch):
+    """Mean over the leading (epoch) axis of ``per_epoch(coefficients)``,
+    one epoch at a time so memory stays one epoch's coefficients."""
+    total = 0.0
+    for sig in np.asarray(signals):
+        total = total + per_epoch(epoch_coefficients(sig, bank, interpolate))
+    return total / len(signals)
+
+
+def mean_power(signals, bank, interpolate: bool) -> np.ndarray:
+    """``EpochsWavelet.power``: mean over epochs of |cwt|^2."""
+    return _epoch_mean(signals, bank, interpolate, lambda c: np.abs(c) ** 2)
+
+
+def itc(signals, bank, interpolate: bool) -> np.ndarray:
+    """``EpochsWavelet.itc``: |mean over epochs of cwt / |cwt||."""
+    return np.abs(_epoch_mean(signals, bank, interpolate,
+                              lambda c: c / np.abs(c)))
+
+
+def _pair_mean(sigs_a, sigs_b, bank, interpolate, per_epoch):
+    total = 0.0
+    for sa, sb in zip(np.asarray(sigs_a), np.asarray(sigs_b)):
+        total = total + per_epoch(epoch_coefficients(sa, bank, interpolate),
+                                  epoch_coefficients(sb, bank, interpolate))
+    return total / len(sigs_a)
+
+
+def coherence(sigs_a, sigs_b, bank, interpolate: bool) -> np.ndarray:
+    """|mean Wa conj(Wb)|^2 / (mean |Wa|^2 mean |Wb|^2)."""
+    x = _pair_mean(sigs_a, sigs_b, bank, interpolate,
+                   lambda a, b: a * np.conj(b))
+    pa = mean_power(sigs_a, bank, interpolate)
+    pb = mean_power(sigs_b, bank, interpolate)
+    return np.abs(x) ** 2 / (pa * pb)
+
+
+def imcoh(sigs_a, sigs_b, bank, interpolate: bool) -> np.ndarray:
+    """Im(mean Wa conj(Wb)) / sqrt(mean |Wa|^2 mean |Wb|^2)."""
+    x = _pair_mean(sigs_a, sigs_b, bank, interpolate,
+                   lambda a, b: a * np.conj(b))
+    pa = mean_power(sigs_a, bank, interpolate)
+    pb = mean_power(sigs_b, bank, interpolate)
+    return x.imag / np.sqrt(pa * pb)
+
+
+def _unit_cross(a, b):
+    x = a * np.conj(b)
+    return x / np.abs(x)
+
+
+def plv(sigs_a, sigs_b, bank, interpolate: bool) -> np.ndarray:
+    """|mean over epochs of exp(i (phi_a - phi_b))|."""
+    return np.abs(_pair_mean(sigs_a, sigs_b, bank, interpolate,
+                             _unit_cross))
+
+
+def ppc(sigs_a, sigs_b, bank, interpolate: bool) -> np.ndarray:
+    """Pairwise phase consistency: mean cosine of the phase difference
+    over all distinct epoch pairs, (|sum u|^2 - E) / (E (E - 1))."""
+    e = len(sigs_a)
+    s = e * _pair_mean(sigs_a, sigs_b, bank, interpolate, _unit_cross)
+    return (np.abs(s) ** 2 - e) / (e * (e - 1.0))
+
+
+def phase_lag(sigs_a, sigs_b, bank, interpolate: bool,
+              method: str) -> np.ndarray:
+    """PLI, wPLI or debiased wPLI^2 of Im(Wa conj(Wb)) over epochs."""
+    ims = [(epoch_coefficients(sa, bank, interpolate)
+            * np.conj(epoch_coefficients(sb, bank, interpolate))).imag
+           for sa, sb in zip(np.asarray(sigs_a), np.asarray(sigs_b))]
+    ims = np.stack(ims)
+    if method == "pli":
+        return np.abs(np.mean(np.sign(ims), axis=0))
+    s_im, s_abs = ims.sum(0), np.abs(ims).sum(0)
+    if method == "wpli":
+        return np.abs(s_im) / s_abs
+    s_sq = (ims ** 2).sum(0)
+    return (s_im ** 2 - s_sq) / (s_abs ** 2 - s_sq)

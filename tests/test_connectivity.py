@@ -7,6 +7,7 @@ import pytest
 import ninwavelets_tpu as nw
 from ninwavelets_tpu import parallel as par
 from ninwavelets_tpu.ops.bank import make_fft_bank
+import reference_oracle as ro
 from ninwavelets_tpu.ops.connectivity import (coherence_matrix, pac, plv,
                                               plv_from_bank, plv_matrix)
 from ninwavelets_tpu.ops.extensions import epoch_coherence_from_bank
@@ -450,44 +451,43 @@ class TestPhaseLag:
                                  interpolate=True, eps=1e-12))
         np.testing.assert_allclose(w, 0.0)
 
+    @staticmethod
+    def _assert_oracle(method, sa, sb, bank, got):
+        """Against the float64 oracle: wpli/dwpli to the 90 dB gate; pli
+        counts signs, so a cell whose lag sits at zero may flip under
+        round-off — at most one cell in a thousand may differ."""
+        want = ro.phase_lag(np.asarray(sa), np.asarray(sb), bank, True,
+                            method)
+        got = np.asarray(got)
+        if method == "pli":
+            assert np.mean(np.abs(got - want) > 1e-6) < 1e-3
+        else:
+            assert ro.snr_db(want, got) >= 90.0
+
     @pytest.mark.parametrize("method", ["pli", "wpli", "dwpli"])
-    def test_fused_interpret_parity(self, method):
+    def test_matches_oracle(self, method):
         from ninwavelets_tpu.ops.connectivity import phase_lag
-        from ninwavelets_tpu.ops.fused import fused_phase_lag
         bank = _bank(self.FREQS, 1024)
         sa, sb = self._epochs(1.0, e=6)
-        want = np.asarray(phase_lag(sa, sb, bank, method=method,
-                                    interpolate=True))
-        got = np.asarray(fused_phase_lag(sa, sb, bank, method=method,
-                                         interpolate=True, interpret=True,
-                                         precision="exact"))
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        got = phase_lag(sa, sb, bank, method=method, interpolate=True)
+        self._assert_oracle(method, sa, sb, bank, got)
 
-    def test_fused_ragged_chunking(self):
-        """E=11 > the 8-pair cap: zero-padded chunks must not perturb any
-        of the four sums (sign(0) = 0)."""
+    def test_ragged_epoch_count(self):
+        """An odd epoch count (11) through the four epoch sums."""
         from ninwavelets_tpu.ops.connectivity import phase_lag
-        from ninwavelets_tpu.ops.fused import fused_phase_lag
         bank = _bank(self.FREQS, 1024)
         sa, sb = self._epochs(1.0, e=11)
         for method in ("pli", "dwpli"):
-            want = np.asarray(phase_lag(sa, sb, bank, method=method,
-                                        interpolate=True))
-            got = np.asarray(fused_phase_lag(sa, sb, bank, method=method,
-                                             interpolate=True,
-                                             interpret=True,
-                                             precision="exact"))
-            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+            got = phase_lag(sa, sb, bank, method=method, interpolate=True)
+            self._assert_oracle(method, sa, sb, bank, got)
 
-    def test_fused_ppc_parity(self):
+    def test_ppc_matches_oracle(self):
         from ninwavelets_tpu.ops.connectivity import ppc
-        from ninwavelets_tpu.ops.fused import fused_ppc
         bank = _bank(self.FREQS, 1024)
         sa, sb = self._epochs(1.0, e=6)
-        want = np.asarray(ppc(sa, sb, bank, interpolate=True))
-        got = np.asarray(fused_ppc(sa, sb, bank, interpolate=True,
-                                   interpret=True, precision="exact"))
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        got = np.asarray(ppc(sa, sb, bank, interpolate=True))
+        want = ro.ppc(np.asarray(sa), np.asarray(sb), bank, True)
+        assert ro.snr_db(want, got) >= 90.0
 
     def test_sharded_matches_single_device(self):
         from ninwavelets_tpu.ops.connectivity import phase_lag, ppc
@@ -502,10 +502,6 @@ class TestPhaseLag:
             # atol covers dwpli cells whose denominator nearly cancels
             # (psum reassociation vs the single-device sum order).
             np.testing.assert_allclose(got, want, rtol=2e-5, atol=5e-6)
-            gotf = np.asarray(par.sharded_fused_phase_lag(
-                sa, sb, bank, mesh=mesh, method=method, interpolate=True,
-                interpret=True, precision="exact"))
-            np.testing.assert_allclose(gotf, want, rtol=1e-4, atol=1e-5)
         want = np.asarray(ppc(sa, sb, bank, interpolate=True))
         got = np.asarray(par.sharded_ppc(sa, sb, bank, mesh=mesh,
                                          interpolate=True))

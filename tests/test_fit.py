@@ -58,9 +58,11 @@ def test_learn_bank_recovers_target():
         learn_bank(sig, bank0, target, loss="nope", steps=1)
 
 
-def test_learn_bank_fused_interpret_matches_xla():
-    """use_fused=True (kernel forward + analytic-adjoint backward each
-    step) follows the same descent as the XLA path."""
+def test_learn_bank_matches_optax_autodiff():
+    """learn_bank (analytic-adjoint gradient each step) follows the same
+    descent as a plain optax loop over autodiff of the XLA forward."""
+    import jax
+    import optax
     morse = nw.Morse(SFREQ)
     freqs = np.arange(30.0, 90.0, 10.0, np.float32)
     bank0 = jnp.asarray(np.asarray(make_fft_bank(
@@ -68,15 +70,21 @@ def test_learn_bank_fused_interpret_matches_xla():
     rng = np.random.default_rng(2)
     sig = jnp.asarray(rng.standard_normal((4, 1, 2048)).astype(np.float32))
     target = mean_power_from_bank(sig, bank0, True)
-    b_x, l_x = learn_bank(sig, bank0 * 1.2, target, steps=10, lr=1e-3)
-    # interpret-mode kernel inside the training scan
-    from ninwavelets_tpu.ops import fit as fit_mod
-    b_f, l_f = fit_mod.learn_bank(
-        sig, bank0 * 1.2, target, loss="mse", steps=10, lr=1e-3,
-        use_fused=True, precision="exact", interpret=True)
-    np.testing.assert_allclose(np.asarray(l_f), np.asarray(l_x),
+    b_a, l_a = learn_bank(sig, bank0 * 1.2, target, steps=10, lr=1e-3)
+
+    opt = optax.adam(1e-3)
+    loss = jax.jit(jax.value_and_grad(lambda b: jnp.mean(jnp.square(
+        mean_power_from_bank(sig, b, True) - target))))
+    b, state, l_x = bank0 * 1.2, None, []
+    state = opt.init(b)
+    for _ in range(10):
+        val, g = loss(b)
+        updates, state = opt.update(g, state, b)
+        b = optax.apply_updates(b, updates)
+        l_x.append(float(val))
+    np.testing.assert_allclose(np.asarray(l_a), np.asarray(l_x),
                                rtol=1e-3, atol=1e-7)
-    np.testing.assert_allclose(np.asarray(b_f), np.asarray(b_x),
+    np.testing.assert_allclose(np.asarray(b_a), np.asarray(b),
                                rtol=1e-2, atol=1e-5)
 
 

@@ -72,13 +72,12 @@ def test_other_families_random_signal(idx, family):
 
 
 @pytest.mark.parametrize("seed", range(N_DRAWS))
-def test_fused_kernel_random_geometry(seed):
-    """Randomized fused-kernel (interpret) parity across supported
-    geometries: N in {1024..8192}, random F/E/C, real or complex bank,
-    random interpolate."""
+def test_mean_power_random_geometry(seed):
+    """Randomized epoch-mean power parity against the float64 oracle:
+    N in {1024..8192}, random F/E/C, real or complex bank, random
+    interpolate."""
     import jax
     import jax.numpy as jnp
-    from ninwavelets_tpu.ops import fused
     from ninwavelets_tpu.ops.bank import make_fft_bank
     from ninwavelets_tpu.ops.cwt import mean_power_from_bank
 
@@ -96,12 +95,11 @@ def test_fused_kernel_random_geometry(seed):
                         jnp.float32)
     bank = make_fft_bank(w._wdef(), freqs, n, SFREQ, interp)
     sig = jnp.asarray(rng.standard_normal((e, c, n)).astype(np.float32))
-    want = np.asarray(jax.jit(
+    got = np.asarray(jax.jit(
         lambda s, b: mean_power_from_bank(s, b, interp))(sig, bank))
-    got = np.asarray(fused.fused_mean_power_from_bank(
-        sig, bank, interp, interpret=True, precision="exact"))
-    rel = np.abs(got - want).max() / np.abs(want).max()
-    assert rel < 1e-4, (n, e, c, nf, interp, complex_bank, rel)
+    want = oracle.mean_power(np.asarray(sig), np.asarray(bank), interp)
+    snr = oracle.snr_db(want, got)
+    assert snr >= 90.0, (n, e, c, nf, interp, complex_bank, snr)
 
 
 @pytest.mark.parametrize("seed", range(12))

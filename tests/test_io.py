@@ -257,7 +257,7 @@ class TestSources:
         morse = nw.Morse(sfreq)
         freqs = np.arange(5.0, 40.0, 5.0)
         s = StreamingCWT(morse._wdef(), freqs, sfreq, window=1024,
-                         halo=512, use_fused=False, batch=2)
+                         halo=512, batch=2)
         via_file = np.asarray(s.power_device_source(EDFSource(reader)))
         via_mem = np.asarray(s.power_device(reader.get_data()))
         np.testing.assert_allclose(via_file, via_mem, rtol=1e-6, atol=1e-9)

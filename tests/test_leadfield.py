@@ -158,7 +158,7 @@ class TestEndToEnd:
         sig = np.outer(lf[:, true_idx] @ ori, s)
         # 5% sensor noise: keeps the covariance condition inside
         # float32 (a near-rank-1 cov with reg ~1e-7 localizes on CPU
-        # but NOT on the chip — same f32, different rounding paths)
+        # but not on an accelerator — same f32, different rounding paths)
         x = (sig + 0.05 * sig.std()
              * rng.standard_normal((48, n))).astype(np.float32)
         cov = (x @ x.T) / n

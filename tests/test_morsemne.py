@@ -118,5 +118,5 @@ def test_importerror_without_mne():
     (the native Morse path is the recommendation)."""
     if "mne" in sys.modules:
         pytest.skip("real mne present")
-    with pytest.raises(ImportError, match="native TPU path"):
+    with pytest.raises(ImportError, match="native device path"):
         nw.MorseMNE(SFREQ).cwt(_sine(), [60.0])

@@ -35,7 +35,6 @@ class TestOnlineCWT:
         freqs = np.arange(5.0, 50.0, 5.0)
         kw.setdefault("window", 512)
         kw.setdefault("halo", 256)
-        kw.setdefault("use_fused", False)
         kw.setdefault("batch", 1)   # OnlineCWT's real-time default
         oc = OnlineCWT(morse._wdef(), freqs, self.sfreq, **kw)
         sc = StreamingCWT(morse._wdef(), freqs, self.sfreq, **kw)

@@ -1,4 +1,4 @@
-"""Coefficient-parity tests: the float32 TPU engine vs the float64 oracle
+"""Coefficient-parity tests: the float32 engine vs the float64 oracle
 that transcribes the reference algorithm (see ``reference_oracle.py``).
 
 Gate: SNR >= 90 dB on CWT coefficients (float32 round-off through two FFTs

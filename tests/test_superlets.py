@@ -1,6 +1,6 @@
 """Superlets (fractional adaptive superresolution transform — extension;
 Moca et al. 2021).  The reference has no counterpart; these gate the
-TPU-build implementation's own contracts."""
+implementation's own contracts."""
 import jax.numpy as jnp
 import numpy as np
 

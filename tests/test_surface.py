@@ -178,16 +178,16 @@ class TestCacheKeys:
         assert m.fft_wavelets.shape == (2, 500)
 
 
-class TestFusedGuards:
+class TestGuards:
     def test_mismatched_bank_rejected(self):
-        from ninwavelets_tpu.ops import fused
+        """A bank built for another signal length would sample the wavelet
+        at the wrong frequency resolution: refused with a clear error."""
+        from ninwavelets_tpu.ops import cwt
         import jax.numpy as jnp
         bank = jnp.ones((16, 4096), jnp.float32)
-        assert not fused.supports((2, 1, 2048), bank)
         with pytest.raises(ValueError, match="bank length"):
-            fused.fused_mean_power_from_bank(
-                jnp.ones((2, 1, 2048), jnp.float32), bank, True,
-                interpret=True)
+            cwt.mean_power(jnp.ones((2, 1, 2048), jnp.float32), bank,
+                           interpolate=True)
 
     def test_halo_requires_freq_domain_mode(self):
         from ninwavelets_tpu.parallel import halo_samples
